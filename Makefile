@@ -21,7 +21,7 @@ cover:
 sweep:
 	$(PY) hack/sweep_jax.py
 
-# Headline benchmark (real TPU; prints one JSON line on stdout).
+# Headline benchmark (needs a GPU; prints one JSON line on stdout).
 bench:
 	$(PY) bench.py
 

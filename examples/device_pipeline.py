@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""End-to-end TPU-resident pipeline: ALAC packets -> PCM -> spectral features.
+"""End-to-end device-resident pipeline: ALAC packets -> PCM -> spectral features.
 
 Demonstrates the framework's native consumption model: compressed packets
 cross the host<->device link once; decode, float conversion and feature
-extraction all run on-chip, and only the (much smaller) features return.
+extraction all run on the device, and only the (much smaller) features return.
 
-    python examples/tpu_pipeline.py [--cpu]
+    python examples/device_pipeline.py [--cpu]
 """
 import argparse
 import os

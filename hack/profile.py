@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Phase-level profiling of the device decode pipeline.
 
-TPU analogue of the reference's hack/bench.sh pprof harness.  Run:
+The device analogue of the reference's hack/bench.sh pprof harness.  Run:
     python hack/profile.py [--batch 256] [--trace /tmp/jax-trace]
 """
 import argparse
@@ -24,11 +24,10 @@ def main() -> int:
 
         jax.config.update("jax_platforms", "cpu")
 
-    from bench import make_fixture
+    from bench import fixture
     from saprobe_alac_tpu.utils.profiling import device_trace, profile_batch_decode
 
-    cfg, packets, _ = make_fixture()
-    batch = [packets[i % len(packets)] for i in range(args.batch)]
+    cfg, batch, _ = fixture(n=args.batch)
 
     # (profile_batch_decode runs its own untimed warm iteration.)
     if args.trace:

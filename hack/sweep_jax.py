@@ -13,14 +13,12 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-
-from conftest import make_config, music_pcm
 
 from saprobe_alac_tpu.codec import decode_packet as oracle
 from saprobe_alac_tpu.encoder import EncoderSpec, encode_packets
 from saprobe_alac_tpu.encoder.encode import ChannelSpec
+from saprobe_alac_tpu.encoder.synth import make_config, music_pcm
 from saprobe_alac_tpu.ops.batch import JaxBatchDecoder
 
 

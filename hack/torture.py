@@ -106,7 +106,7 @@ def main() -> int:
         if roll < 3 and native.available():
             backend = "auto"
         elif roll == 3 and args.jax_every and spec.channel.mode == 0 and not spec.escape and it % max(args.jax_every // 4, 1) == 0:
-            backend = "device"  # TPU lane-parallel encoder
+            backend = "device"  # lane-parallel device encoder
         else:
             backend = "python"
         try:

@@ -1,12 +1,12 @@
 // Native (C++) ALAC packet decode core.
 //
-// Host-side runtime companion to the TPU pipeline: the single-packet fast
+// Host-side runtime companion to the device pipeline: the single-packet fast
 // path behind PacketDecoder, the scalar fallback for malformed packets, and
 // an OpenMP-threaded batch decoder for host-only deployment.  Independent
 // implementation of the same math as saprobe_alac_tpu/codec (adaptive
 // Golomb-Rice entropy coding + adaptive LPC + stereo un-decorrelation),
 // with Go fixed-width semantics (wrapping int32, saturating shift counts)
-// for bit-exact agreement with the Python oracle and the TPU path.
+// for bit-exact agreement with the Python oracle and the device path.
 //
 // Behavioral parity references (reference repo, decode math only):
 //   golomb.go:112-253, predictor.go:45-684, matrix.go, decoder.go:133-574.
@@ -537,7 +537,7 @@ int32_t alac_decode_batch(const AlacConfigC* ccfg, const uint8_t* flat,
 
 // Host-side packet batching for the device pipeline: packets (concatenated
 // in `flat` with offsets/sizes) -> (B, W_words) array of big-endian-bit-order
-// words, zero-padded (bitbuffer.go:28-32 pad semantics; the TPU kernels'
+// words, zero-padded (bitbuffer.go:28-32 pad semantics; the device path's
 // guard words are included in W_words by the caller).  The Python/numpy
 // version costs ~240 ms for a 2048x12KB batch (per-packet interpreter
 // overhead); this is the IO-path analogue of the reference's zero-copy

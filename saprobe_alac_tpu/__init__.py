@@ -1,18 +1,18 @@
-"""saprobe_alac_tpu — a TPU-native ALAC (Apple Lossless) decode framework.
+"""saprobe_alac_tpu — batched ALAC (Apple Lossless) decode on an accelerator.
 
 A from-scratch reimplementation of the capabilities of mycophonic/saprobe-alac,
-redesigned TPU-first:
+redesigned for packet-parallel decode on an accelerator:
 
 - Host layer: MP4/M4A demux, magic-cookie parsing, packet batching, streaming
   ``Decoder`` facade with Read/Seek/Format/Duration/Position semantics
   (reference decode.go).
 - Scalar oracle: a bit-exact host implementation of the codec core
   (``codec/``) used for differential testing and single-packet decode.
-- TPU compute path (``ops/``): massively parallel packet-level batch decoding
-  in JAX/XLA/Pallas — adaptive Golomb-Rice entropy decoding, adaptive LPC
+- Device compute path (``ops/``): massively parallel packet-level batch
+  decoding in JAX/XLA and Pallas kernels for the GPU — adaptive Golomb-Rice entropy decoding, adaptive LPC
   reconstruction, stereo un-decorrelation and PCM formatting, one packet per
-  vector lane.
-- Multi-chip scale-out (``parallel/``): pure data parallelism over the packet
+  lane.
+- Multi-device scale-out (``parallel/``): pure data parallelism over the packet
   axis via jax.sharding / shard_map (packets are self-contained; the algorithm
   needs no collectives — reference SURVEY §2.4).
 - Encoder (``encoder/``): full ALAC encoder + M4A muxer (fixture generation

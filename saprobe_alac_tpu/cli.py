@@ -27,7 +27,7 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("-format", "--format", choices=("wav", "pcm"), default="wav")
     parser.add_argument(
         "-backend", "--backend", choices=("auto", "native", "scalar", "jax"), default="auto",
-        help="decode backend: scalar oracle (host) or batched TPU/JAX",
+        help="decode backend: scalar oracle (host) or batched device (JAX)",
     )
     parser.add_argument("-batch", "--batch", type=int, default=64, help="packets per device batch")
     parser.add_argument("input", help="input .m4a file, or '-' for stdin")

@@ -1,9 +1,9 @@
 """Scalar (host, NumPy/Python) ALAC codec core.
 
-This package is the bit-exact oracle for the TPU compute path: an independent
+This package is the bit-exact oracle for the device compute path: an independent
 implementation of the ALAC decode math (adaptive Golomb-Rice entropy coding,
 adaptive LPC prediction, stereo un-decorrelation) with Go/C fixed-width integer
-semantics.  The TPU kernels in `ops/` are differentially tested against it.
+semantics.  The device path in `ops/` are differentially tested against it.
 
 Reference behavior: internal/alac/{bitbuffer,golomb,predictor,matrix}.go and
 decoder.go in mycophonic/saprobe-alac.

@@ -3,7 +3,7 @@
 Behavioral parity with reference internal/alac/golomb.go (itself a port of
 Apple ag_dec.c).  The code is inherently bit-serial: each codeword's length
 depends on its decoded value and on the adaptive mean state, so there is no
-intra-block parallelism — the TPU path (ops/) parallelizes across packets.
+intra-block parallelism — the device path (ops/) parallelizes across packets.
 
 Algorithm per sample (reference golomb.go:148-253):
   k     = min(lg3a(mean >> 9), kb); m = 2^k - 1

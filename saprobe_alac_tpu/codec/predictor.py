@@ -4,7 +4,7 @@ Behavioral parity with reference internal/alac/predictor.go (port of dp_dec.c).
 
 The recurrence is strictly serial per channel: out[i] depends on
 out[i-1..i-order] AND on coefficients mutated at every prior sample (the
-sign-walk adaptation), so it cannot be a parallel scan — the TPU path
+sign-walk adaptation), so it cannot be a parallel scan — the device path
 parallelizes across (packet, channel) lanes instead (ops/lpc.py).
 
 Modes (predictor.go:45-94):

@@ -2,7 +2,7 @@
 
 Parity with reference decode.go:32-190: a file-like reader over decoded PCM
 with O(1) packet-aligned Seek, Duration/Position arithmetic, and per-packet
-on-demand decode.  TPU twist: instead of decoding one packet per Read, the
+on-demand decode.  Device twist: instead of decoding one packet per Read, the
 facade prefetches a window of packets and decodes them as one device batch,
 amortizing dispatch across the embarrassingly parallel packet axis
 (SURVEY §2.3: packets are fully independent).

@@ -3,10 +3,10 @@
 ``PacketDecoder`` is the low-level single-packet surface (parity with
 reference decoder.go:79-128: NewPacketDecoder / DecodePacket / Format).
 
-``BatchDecoder`` is the TPU-native throughput surface the reference lacks: it
-decodes batches of packets in parallel on the device (one packet per vector
-lane), falling back to the scalar oracle per-packet when no accelerator path
-is available or a packet fails on-device validation.
+``BatchDecoder`` is the device throughput surface the reference lacks: it
+decodes batches of packets in parallel on the accelerator (one packet per
+lane), falling back to the host decoder per packet when a packet fails
+on-device validation.
 """
 
 from __future__ import annotations
@@ -56,7 +56,8 @@ class PacketDecoder:
 
 
 class BatchDecoder:
-    """Batched packet decoding on the TPU (the framework's throughput path).
+    """Batched packet decoding on the accelerator (the framework's throughput
+    path).
 
     All packets in a batch share one PacketConfig (one file / one cookie), so
     frame length and channel layout are static shapes for the compiled kernel
@@ -85,7 +86,7 @@ class BatchDecoder:
             import jax
 
             if len(jax.devices()) > 1:
-                # Multi-chip: shard the packet axis over the mesh.
+                # Several devices: shard the packet axis over the mesh.
                 from .parallel import ShardedBatchDecoder
 
                 self._jax_impl = ShardedBatchDecoder(self.config)

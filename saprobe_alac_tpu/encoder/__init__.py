@@ -4,7 +4,7 @@ The reference repo relies on external encoders (ffmpeg / CoreAudio / Apple
 alacconvert) to produce conformance fixtures (reference tests/conformance_test.go:427-497).
 None of those exist in this environment, so this package provides a complete
 in-repo encoder: it is the fixture generator for the differential test suite
-(encode -> scalar-oracle decode -> TPU decode must all round-trip bit-exactly)
+(encode -> scalar-oracle decode -> device decode must all round-trip bit-exactly)
 and a user-facing feature the reference lacks.
 
 Supports 16/20/24/32-bit, 1-8 channels, compressed (adaptive Golomb-Rice +

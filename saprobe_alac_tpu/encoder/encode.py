@@ -569,7 +569,7 @@ def encode_packets(
     """Encode (total_samples, channels) PCM into a list of packets.
 
     backend "auto" uses the C++ native encoder when available (identical
-    format, ~50x faster); "device" runs the TPU lane-parallel encoder
+    format, ~50x faster); "device" runs the lane-parallel device encoder
     (ops/encode_device.py; byte-identical given shared coefficients);
     "python" forces the pure-Python reference encoder (which fits
     coefficients per channel instead of per packet).

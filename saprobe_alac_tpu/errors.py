@@ -1,4 +1,4 @@
-"""Error taxonomy for the TPU-native ALAC framework.
+"""Error taxonomy for the ALAC decode framework.
 
 Mirrors the reference's two-level sentinel design (reference: errors.go:25-33,
 internal/alac/errors.go:25-32, internal/mp4/errors.go:25-33): public exception

@@ -1,10 +1,10 @@
-"""TPU compute path: batched ALAC decode in JAX/XLA/Pallas.
+"""Device compute path: batched ALAC decode in JAX/XLA and Pallas (Triton).
 
 The bit-serial decode of one packet cannot be parallelized (each Golomb
 codeword's length depends on its decoded value — reference OPTIM.md:114), so
-the TPU design parallelizes across packets: a batch of B packets decodes in
-lockstep, one packet per vector lane, with per-lane bit cursors, adaptive-mean
-state and LPC coefficient state held in vector registers.
+the device path parallelizes across packets: a batch of B packets decodes in
+lockstep, one packet per lane, with per-lane bit cursors, adaptive-mean state and
+LPC coefficient state held in registers.
 
 Pipeline (see SURVEY §7):
   1. walk.py      — element walk + header parse + entropy decode (serial per

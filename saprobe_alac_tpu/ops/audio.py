@@ -1,7 +1,7 @@
 """On-device audio post-processing for decoded PCM.
 
-The TPU-native consumption story: decoded samples stay in HBM and feed
-feature extraction / models on the same chip — no host round-trip (the
+The device-resident consumption story: decoded samples stay in device
+memory and feed feature extraction / models on the same device — no host round-trip (the
 device-resident path bench.py measures).
 """
 

@@ -2,11 +2,10 @@
 
 JaxBatchDecoder compiles one program per (config, batch-bucket, width-bucket)
 and reuses it across calls.  The device program ends with on-device PCM byte
-packing so the device->host transfer is exactly the PCM payload (the
-host<->device link is the throughput-critical resource; compute is ~1000x
-faster than the link).  Packets that trip on-device validation fall back to
-the host path (threaded native core when built, else the scalar oracle),
-reproducing the reference's exact per-packet error surface.
+packing so the device->host transfer is exactly the PCM payload.  Packets
+that trip on-device validation fall back to the host path (threaded native
+core when built, else the scalar oracle), reproducing the reference's exact
+per-packet error surface.
 """
 
 from __future__ import annotations
@@ -23,11 +22,19 @@ from ..config import PacketConfig
 from ..formats import bytes_per_sample
 from .bitpack import pack_packets_device_swap
 from .epilogue import extract_escape, extract_shift, finish_packed
-from . import lpc as _lpc_mod
-from .lpc import _kernel_impl as _kernel_lpc
-from . import walk as _walk_mod
 from .lpc import _lpc_batch
-from .walk import ERR_NONE, _walk_batch
+from .walk import ERR_NONE, _walk_batch, resolve_impl
+
+
+#: Packets this process decoded on the host after the device flagged them
+#: (malformed input, or a layout the device path declines).
+_host_fallback_packets = 0
+
+
+def host_fallback_packets() -> int:
+    """How many packets the device batch path has handed to the host path."""
+    return _host_fallback_packets
+
 
 def _host_decode(config: PacketConfig, packets: Sequence[bytes]) -> list[bytes]:
     """Host-side decode at the fastest available speed.
@@ -78,21 +85,20 @@ def _byteswap_words(words):
 @partial(
     jax.jit,
     static_argnames=(
-        "frame_length", "num_channels", "depth", "pb", "mb", "kb",
-        "walk_impl", "lpc_impl", "pre_swapped", "taps",
+        "frame_length", "num_channels", "depth", "pb", "mb", "kb", "impl",
+        "pre_swapped",
     ),
 )
 def _decode_batch(
-    words, size_bits, frame_length, num_channels, depth, pb, mb, kb,
-    walk_impl, lpc_impl, pre_swapped=True, taps=9,
+    words, size_bits, frame_length, num_channels, depth, pb, mb, kb, impl,
+    pre_swapped=True,
 ):
     if not pre_swapped:
         # Host uploaded raw little-endian words (single-core packer skips
         # the byteswap); flip to the big-endian bit order the walk expects.
         words = _byteswap_words(words)
     return _decode_core(
-        words, size_bits, frame_length, num_channels, depth, pb, mb, kb,
-        walk_impl, lpc_impl, taps,
+        words, size_bits, frame_length, num_channels, depth, pb, mb, kb, impl
     )
 
 
@@ -100,92 +106,61 @@ def _decode_batch(
     jax.jit,
     static_argnames=(
         "w_bucket", "frame_length", "num_channels", "depth", "pb", "mb",
-        "kb", "walk_impl", "lpc_impl", "pre_swapped", "taps",
+        "kb", "impl", "pre_swapped",
     ),
 )
 def _decode_batch_tight(
     flat, offsets, size_bits, w_bucket, frame_length, num_channels, depth,
-    pb, mb, kb, walk_impl, lpc_impl, pre_swapped=False, taps=9,
+    pb, mb, kb, impl, pre_swapped=False,
 ):
     """Decode from a TIGHT staging buffer: packets concatenated back to back
     (each padded only to its own word boundary) plus per-packet word offsets.
 
     The host uploads exactly the compressed payload — no per-row padding to
     the batch's max packet width — and the (B, W) padded layout the walk
-    expects is materialized on device with one masked gather.  On link-bound
-    hosts this cuts H2D bytes by the batch's padding ratio (~20-30% for
-    music); rows read zeros past their own packet, preserving the guard-word
-    semantics of the padded path (bitpack.GUARD_WORDS).
+    expects is materialized on device.  This cuts H2D bytes by the batch's
+    padding ratio (~20-30% for music); rows read zeros past their own
+    packet, preserving the guard-word semantics of the padded path
+    (bitpack.GUARD_WORDS).
     """
     if not pre_swapped:
         flat = _byteswap_words(flat)
     Wb = w_bucket
     wcount = jax.lax.shift_right_logical(size_bits + 31, 5)
     col = jnp.arange(Wb, dtype=jnp.int32)[None, :]
-    # Row materialization via vmapped dynamic_slice, NOT an elementwise
-    # gather: XLA lowers the slice batch to DMA-granularity copies where the
-    # (B, Wb)-index gather runs on the scalar core (~2.9 s vs ~39 ms for a
-    # 10k x 8192 batch on v5e — the whole decode is ~41 ms).  _stage_tight
+    # Row materialization via vmapped dynamic_slice (contiguous row copies)
+    # rather than a (B, Wb)-index elementwise gather.  _stage_tight
     # guarantees offsets[i] + Wb <= len(flat), so no slice is clamped.
     words = jax.vmap(lambda o: jax.lax.dynamic_slice(flat, (o,), (Wb,)))(
         offsets
     )
     words = jnp.where(col < wcount[:, None], words, 0)
     return _decode_core(
-        words, size_bits, frame_length, num_channels, depth, pb, mb, kb,
-        walk_impl, lpc_impl, taps,
+        words, size_bits, frame_length, num_channels, depth, pb, mb, kb, impl
     )
 
 
-def _decode_core(
-    words, size_bits, frame_length, num_channels, depth, pb, mb, kb,
-    walk_impl, lpc_impl, taps=9,
-):
+def _decode_core(words, size_bits, frame_length, num_channels, depth, pb, mb, kb, impl):
     F = frame_length
     C = num_channels
     B = words.shape[0]
+    w = _walk_batch(words, size_bits, F, C, depth, pb, mb, kb, impl)
 
-    from .walk import fused_rows_layout
-
-    fused = fused_rows_layout(walk_impl, lpc_impl, C, B)
-    w = _walk_batch(
-        words, size_bits, F, C, depth, pb, mb, kb, walk_impl, fused=fused
+    # Escape channels: raw samples land in the residual planes (order == 0),
+    # extracted post-hoc by a whole-batch bit gather gated on any(esc).
+    # Residuals stay in the F-major (F, C, B) plane layout end to end; the
+    # LPC phase reads (F, C*B) as a free reshape.
+    res = jax.lax.cond(
+        jnp.any(w.esc == 1),
+        lambda: extract_escape(words, w.res, w.esc, w.esc_base, w.esc_cb, w.role, F, C),
+        lambda: w.res,
     )
-
-    # Escape channels: raw samples land in the residual planes (order == 0).
-    # The dense (Pallas) walk decodes them IN-KERNEL — escape lanes ride the
-    # group loop as fixed-width raw readers, so a full-escape (white noise)
-    # batch runs at kernel speed instead of a whole-batch XLA bit gather
-    # (~17 ns/element: ~1 s per 2048x4096 stereo batch).  Only the XLA
-    # lockstep fallback still extracts post-hoc, cond-gated on any(esc).
-    # Residuals stay in the walk kernel's F-major (F, C, B) plane layout
-    # end-to-end — the LPC kernel consumes and emits it natively, so the
-    # hot path has no 32 MB relayout anywhere.  On the fused single-slot
-    # layout (C <= 2, whole lane blocks) w.res is the element kernel's RAW
-    # rows buffer and the LPC kernel DMAs chunks straight out of it — no
-    # merge select and no residual relayout at all.
-    from .walk import _dense_impl
-
-    L = B * C
-    if fused:
-        res_arg = w.res  # (passes*F_pad, NB, SL, 128) raw rows
-        rows_nb = w.res.shape[1]
-    else:
-        if _dense_impl(walk_impl):
-            res = w.res
-        else:
-            res = jax.lax.cond(
-                jnp.any(w.esc == 1),
-                lambda: extract_escape(words, w.res, w.esc, w.esc_base, w.esc_cb, w.role, F, C),
-                lambda: w.res,
-            )
-        res_arg = res.reshape(F, L)
-        rows_nb = None
 
     # LPC reconstruction over (B*C) lanes, channel-major (lane = c*B + b) so
     # the (F, L) lane axis is a plain reshape of the plane stack.
+    L = B * C
     mix = _lpc_batch(
-        res_arg,
+        res.reshape(F, L),
         w.order.T.reshape(L),
         w.mode.T.reshape(L),
         w.den.T.reshape(L),
@@ -193,63 +168,35 @@ def _decode_core(
         jnp.tile(w.ns, C),
         w.coefs.transpose(1, 0, 2).reshape(L, 32),
         F,
-        lpc_impl,
-        rows_nb=rows_nb,
-        taps=taps if _kernel_lpc(lpc_impl) else None,
+        impl,
     )
 
-    # Per-packet "wide FIR" flag for the 9-then-32 taps retry protocol: the
-    # 9-tap executable is the steady state (orders 1-8 are what real encoders
-    # emit — the reference hand-unrolls exactly 4/5/6/8, predictor.go:99-618);
-    # a batch with any order-9..30 lane is re-dispatched once through the
-    # cached 32-tap executable by finish_async.  Replaces the on-device
-    # lax.cond whose boundary copies cost ~0.35 ms/batch.
-    if _kernel_lpc(lpc_impl) and taps == 9:
-        wide = jnp.any((w.order >= 9) & (w.order <= 30), axis=1)
-    else:
-        wide = jnp.zeros(B, bool)  # 32-tap / XLA scan handle every order
-
-    # bytesShifted > 0 only appears on 24/32-bit streams (depth is static:
-    # for 16/20 finish() never reads shift_vals and XLA DCEs everything
-    # here).  On the dense path the Pallas raw reader streams the region and
-    # runs UNCONDITIONALLY for 24/32-bit: with every lane inactive (bs == 0)
-    # its group loop takes zero trips (~tens of us), while the lax.cond this
-    # replaces moved the (F, C, B) result through conditional boundary
-    # copies (~0.3 ms on a fully-shifted hires batch, hack/trace_top.py).
-    # The XLA fallback keeps the gather behind the cond — there the inactive
-    # case is NOT cheap.
-    if _dense_impl(walk_impl):
-        from .epilogue import extract_shift_kernel
-
-        if depth in (24, 32):
-            shift_vals = extract_shift_kernel(
-                words, w.shift_base, w.bs, w.role, w.ns, F, C, walk_impl
-            )
-        else:
-            shift_vals = jnp.zeros((F, C, B), jnp.int32)
-    else:
-        shift_vals = jax.lax.cond(
-            jnp.any(w.bs > 0),
-            lambda: extract_shift(words, w.shift_base, w.bs, w.role, F, C),
-            lambda: jnp.zeros((F, C, B), jnp.int32),
-        )
+    # bytesShifted > 0 only appears on 24/32-bit streams; 16/20-bit finish()
+    # never reads shift_vals, so XLA drops the gather there.
+    shift_vals = jax.lax.cond(
+        jnp.any(w.bs > 0),
+        lambda: extract_shift(words, w.shift_base, w.bs, w.role, F, C),
+        lambda: jnp.zeros((F, C, B), jnp.int32),
+    )
     packed = finish_packed(
         mix, shift_vals, w.bs, w.mixbits, w.mixres, w.role, w.out_chan,
         w.filled, F, C, depth,
     )
-    return packed, w.err, w.ns, wide
+    return packed, w.err, w.ns
 
 
 class JaxBatchDecoder:
     """Device-batched packet decoding for one PacketConfig."""
 
-    def __init__(self, config: PacketConfig, tight: bool = False):
+    def __init__(self, config: PacketConfig, tight: bool = False, impl: str | None = None):
         self.config = config
         self._bps_frame = bytes_per_sample(config.bit_depth) * config.num_channels
         #: Tight staging: upload the concatenated payload + offsets and build
         #: the padded (B, W) layout on device (see _decode_batch_tight).
         #: Off by default — identical results, fewer H2D bytes when on.
         self.tight = tight
+        #: Device path for the walk and LPC phases (ops/walk.default_impl).
+        self.impl = resolve_impl(impl)
         # Degenerate entropy tuning (kb == 0) relies on Go uint32 bit-position
         # wrap semantics, and absurd frame lengths would blow device memory;
         # route such streams to the host path (native core, else oracle).
@@ -301,16 +248,10 @@ class JaxBatchDecoder:
         sizes[:B] = lens * 8
         return flat, offsets, sizes, Wb
 
-    def decode_async(self, packets: Sequence[bytes], taps: int = 9):
-        """Dispatch a batch; returns device arrays (packed, err, ns, wide)
-        without blocking — callers can pipeline multiple batches in flight.
-
-        ``taps=9`` is the steady-state executable (orders 1-8); finish_async
-        re-dispatches through the cached ``taps=32`` executable when the
-        batch's `wide` flag reports an order-9..30 lane."""
+    def decode_async(self, packets: Sequence[bytes]):
+        """Dispatch a batch; returns device arrays (packed, err, ns) without
+        blocking — callers can pipeline multiple batches in flight."""
         cfg = self.config
-        # Impl selections are read at call time so tests/sweeps flipping the
-        # module globals get a fresh trace (they are static jit args).
         if self.tight:
             flat, offsets, sizes, Wb = self._stage_tight(packets)
             return _decode_batch_tight(
@@ -324,10 +265,8 @@ class JaxBatchDecoder:
                 cfg.pb,
                 cfg.mb,
                 cfg.kb,
-                _walk_mod._IMPL,
-                _lpc_mod._IMPL,
+                self.impl,
                 pre_swapped=False,
-                taps=taps,
             )
         words, sizes, swapped = self._stage(packets)
         return _decode_batch(
@@ -339,10 +278,8 @@ class JaxBatchDecoder:
             cfg.pb,
             cfg.mb,
             cfg.kb,
-            _walk_mod._IMPL,
-            _lpc_mod._IMPL,
+            self.impl,
             pre_swapped=swapped,
-            taps=taps,
         )
 
     def _to_bytes(self, packed_row: np.ndarray, ns: int) -> bytes:
@@ -366,13 +303,7 @@ class JaxBatchDecoder:
     def finish_async(self, handle, packets: Sequence[bytes]) -> list[bytes]:
         """Materialize a decode_async result into per-packet PCM bytes."""
         cfg = self.config
-        packed, err, ns, wide = handle
-        # 9-then-32 taps retry: a batch with any FIR order in 9..30 (legal
-        # but unseen from real encoders) re-runs once through the cached
-        # 32-tap executable.  One bool per packet rides the handle — no
-        # extra sync (err/ns are materialized here anyway).
-        if bool(np.asarray(wide)[: len(packets)].any()):
-            packed, err, ns, _ = self.decode_async(packets, taps=32)
+        packed, err, ns = handle
         packed = np.asarray(packed)
         err = np.asarray(err)
         ns = np.asarray(ns)
@@ -380,6 +311,8 @@ class JaxBatchDecoder:
         fb_idx = [i for i in range(len(packets)) if err[i] != ERR_NONE]
         fb: dict[int, bytes] = {}
         if fb_idx:
+            global _host_fallback_packets
+            _host_fallback_packets += len(fb_idx)
             decoded = _host_decode(cfg, [packets[i] for i in fb_idx])
             fb = dict(zip(fb_idx, decoded))
         results: list[bytes] = []

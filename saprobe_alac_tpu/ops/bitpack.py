@@ -1,6 +1,6 @@
 """Host-side packet batching: byte packets -> (B, W) big-endian word array.
 
-Packets are padded to a common word width with zeros (the TPU analogue of the
+Packets are padded to a common word width with zeros (the device analogue of the
 reference BitBuffer's 4-byte zero pad, bitbuffer.go:28-32) plus guard words so
 clamped out-of-range reads always see zeros.
 """

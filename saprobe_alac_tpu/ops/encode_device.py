@@ -20,8 +20,8 @@ Python encoder given the same parameters (kb=0 streams fall back to host).
 
 from __future__ import annotations
 
-import os
 from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,20 +29,6 @@ import numpy as np
 from ..codec.element import CHANNEL_LAYOUT_OFFSETS
 from ..config import PacketConfig
 from .jaxint import I32, U32, clz, lg3a, s, sext, shl, sshr, u, ushr
-
-#: Entropy-encode implementation: "pallas" (dense-consumption Mosaic kernel,
-#: ops/encode_kernel.py), "xla" (lockstep scatter loop below),
-#: "pallas_interpret" (kernel in interpreter mode, for CPU tests), or
-#: "auto" (pallas on TPU backends, xla elsewhere).
-_IMPL = os.environ.get("SAPROBE_ENCODE_IMPL", "auto")
-
-
-def _kernel_impl(impl: str) -> bool:
-    if impl in ("pallas", "pallas_interpret"):
-        return True
-    if impl == "xla":
-        return False
-    return jax.default_backend() == "tpu"
 
 def _emit(words, bitpos, value, width):
     """Append ``width`` (0..32) bits of ``value`` at per-lane ``bitpos``.
@@ -155,60 +141,9 @@ def _lpc_forward_batch(x, order, den, cb, ns, coefs, frame_length):
     return resP
 
 
-def _lpc_forward(data, order, den_shift, cb, ns, coefs, F, mode, enc_impl):
-    """Forward LPC residuals for one channel, mode post-pass included.
-
-    Dispatches to the forward-direction Pallas kernel (ops/lpc_kernel.py,
-    forward=True) for FIR orders on TPU — the XLA fori_loop pays per-step
-    fusion overhead F times (~57 ms/channel at B=1024 F=4096 on v5e,
-    hack/enc_trace.py) where the kernel streams rows through the same
-    staging DMA as decode.  Orders 0/31 have no serial recurrence and stay
-    on the (cheap, loop-free) XLA path.
-    """
-    from .lpc import _INT32_ORDERS
-
+def _lpc_forward(data, order, den_shift, cb, ns, coefs, F, mode):
+    """Forward LPC residuals for one channel, mode post-pass included."""
     B = data.shape[0]
-    if _kernel_impl(enc_impl) and 1 <= order <= 30:
-        from .lpc_kernel import lpc_fir_pallas
-
-        F_pad = ((F + 15) // 16) * 16
-        LB = (
-            1024 if B % 1024 == 0
-            else 512 if B % 512 == 0 else (256 if B % 256 == 0 else 128)
-        )
-        L_pad = ((B + LB - 1) // LB) * LB
-        xT = jnp.zeros((F_pad, L_pad), I32)
-        xT = jax.lax.dynamic_update_slice(xT, data.T, (0, 0))
-
-        def padv(v):
-            return (
-                v if L_pad == B
-                else jnp.concatenate([v, jnp.zeros(L_pad - B, v.dtype)])
-            )
-
-        taps = 9 if order <= 8 else 32
-        coefs_t = coefs.T[:taps]  # (taps, B)
-        if L_pad != B:
-            coefs_t = jnp.concatenate(
-                [coefs_t, jnp.zeros((taps, L_pad - B), I32)], axis=1
-            )
-        ones = jnp.ones(L_pad, I32)
-        res_t = lpc_fir_pallas(
-            xT,
-            padv(jnp.ones(B, I32)),  # pad lanes: class 0 bypass
-            ones * order,
-            ones * den_shift,
-            ones * cb,
-            padv(ns),
-            ones * int(order not in _INT32_ORDERS),
-            ones * int(mode != 0),
-            coefs_t,
-            F=F, LB=LB, taps=taps,
-            interpret=(enc_impl == "pallas_interpret"),
-            forward=True,
-        )
-        return res_t[:F, :B].T
-
     res = _lpc_forward_batch(
         data,
         jnp.full(B, order, I32),
@@ -311,57 +246,17 @@ def _entropy_encode(words, bitpos, res, zrun, active0, pb_local, max_size, ns, m
     return words, bitpos
 
 
-def _entropy_body(res, ns, pb_local, cb, mb, kb, F, Wch, enc_impl):
+def _entropy_body(res, ns, pb_local, cb, mb, kb, Wch):
     """Entropy-encode one channel for all lanes into an isolated buffer at
-    bit 0.  Returns (buf (B, Wch) int32 BE, bit_len (B,), overflow (B,)).
-
-    Dispatches to the dense-consumption Pallas kernel (ops/encode_kernel.py)
-    when selected and in range; the XLA lockstep loop otherwise.  Overflow
-    is always all-False on the XLA path."""
+    bit 0.  Returns (buf (B, Wch) int32 BE, bit_len (B,))."""
     B = res.shape[0]
     zrun = _zero_run_table(res, ns)
-    from .encode_kernel import MAX_KB, dense_encode_pallas
-
-    if _kernel_impl(enc_impl) and 0 < kb <= MAX_KB:
-        n = jnp.where(res >= 0, 2 * res, -2 * res - 1)
-        zr1 = jnp.concatenate(
-            [jnp.minimum(zrun[:, 1:], 65535), jnp.zeros((B, 1), I32)], axis=1
-        )
-        LB = (
-            1024 if B % 1024 == 0
-            else 512 if B % 512 == 0 else (256 if B % 256 == 0 else 128)
-        )
-        B_pad = ((B + LB - 1) // LB) * LB
-        nT, zT = n.T, zr1.T
-        act = jnp.ones(B, bool)
-        cbv = jnp.full(B, cb, I32)
-        nsv = ns
-        mbv = jnp.full(B, mb, I32)
-        if B_pad != B:
-            padc = jnp.zeros((F if nT.shape[0] == F else nT.shape[0], B_pad - B), I32)
-            nT = jnp.concatenate([nT, padc], axis=1)
-            zT = jnp.concatenate([zT, padc], axis=1)
-            padl = jnp.zeros(B_pad - B, I32)
-            act = jnp.concatenate([act, padl.astype(bool)])
-            pb_local = jnp.concatenate([pb_local, padl])
-            cbv = jnp.concatenate([cbv, padl])
-            nsv = jnp.concatenate([nsv, padl])
-            mbv = jnp.concatenate([mbv, padl])
-        buf, blen, ovf = dense_encode_pallas(
-            nT, zT, act, pb_local, cbv, nsv, mbv,
-            kb=kb, F=F, W_out=Wch, LB=LB,
-            interpret=(enc_impl == "pallas_interpret"),
-        )
-        w = buf.shape[1]
-        if w < Wch:
-            buf = jnp.pad(buf, ((0, 0), (0, Wch - w)))
-        return buf[:B, :Wch], blen[:B], ovf[:B] != 0
     buf = jnp.zeros((B, Wch), I32)
     buf, blen = _entropy_encode(
         buf, jnp.zeros(B, I32), res, zrun, jnp.ones(B, bool), pb_local,
         jnp.full(B, cb, I32), ns, mb, kb,
     )
-    return buf, blen, jnp.zeros(B, bool)
+    return buf, blen
 
 
 def _pack_fields(values, width):
@@ -371,8 +266,7 @@ def _pack_fields(values, width):
     big-endian words, Wd = ceil(K*width/32).  The bit layout is a FIXED
     pattern (field k occupies bits [k*w, (k+1)*w)), so each output word is
     the OR of at most floor(32/w)+1 statically-indexed fields — constant-
-    index gathers plus elementwise shifts, no scatter (XLA scatter-add
-    serializes on the TPU scalar core; this was the dominant encode cost).
+    index gathers plus elementwise shifts, no scatter-add.
     """
     B, K = values.shape
     vmask = (1 << width) - 1 if width < 32 else -1
@@ -457,7 +351,7 @@ _LFE_BITSTREAM_IDX = {6: 5, 7: 6, 8: 7}
     static_argnames=(
         "frame_length", "num_channels", "depth", "pb", "mb", "kb",
         "elem_specs", "mix_bits_s", "bytes_shifted",
-        "use_lfe_tag", "force_escape", "auto_escape", "enc_impl",
+        "use_lfe_tag", "force_escape", "auto_escape",
     ),
 )
 def encode_walk(
@@ -468,7 +362,6 @@ def encode_walk(
     frame_length, num_channels, depth, pb, mb, kb,
     elem_specs,  # static: per-element (order, den_shift, pb_candidates, mode, fit)
     mix_bits_s, bytes_shifted, use_lfe_tag, force_escape, auto_escape,
-    enc_impl="xla",
 ):
     """Device-side packet assembly.  Returns (words (B, W) int32 BE, bit_len (B,)).
 
@@ -561,7 +454,6 @@ def encode_walk(
     W = (sum(b[3] for b in _elem_bounds) + 16) // 32 + 4
     words = jnp.zeros((B, W), I32)
     bitpos = jnp.zeros(B, I32)
-    ovf_any = jnp.zeros(B, bool)
     partial_f = ns != F
 
     def emit_hdr(buf, pos, tag, bs_field, escape_flag):
@@ -635,9 +527,7 @@ def encode_walk(
         res_list = []
         bad = jnp.zeros(B, bool)
         for data, ccoef in zip(ch_data, ch_coefs):
-            res = _lpc_forward(
-                data, order, den_shift, cb, ns, ccoef, F, mode, enc_impl
-            )
+            res = _lpc_forward(data, order, den_shift, cb, ns, ccoef, F, mode)
             res_list.append(res)
             if cb >= 32:
                 idxF = jnp.arange(F, dtype=I32)[None, :]
@@ -655,11 +545,10 @@ def encode_walk(
             for res in res_list:
                 cbufs, clens = [], []
                 for pbf in pb_cands:
-                    cbuf, clen, ovf = _entropy_body(
+                    cbuf, clen = _entropy_body(
                         res, ns, jnp.full(B, (pb * pbf) // 4, I32), cb, mb,
-                        kb, F, Wch, enc_impl,
+                        kb, Wch,
                     )
-                    ovf_any = ovf_any | ovf
                     cbufs.append(cbuf)
                     clens.append(clen)
                 lens = jnp.stack(clens, axis=1)  # (B, K)
@@ -708,18 +597,6 @@ def encode_walk(
             for buf, blen, _ in bodies:
                 sc, _ = _emit_many(sc, sp, buf, 32)
                 sp = sp + blen
-        elif _kernel_impl(enc_impl):
-            # Kernel path: encode at bit 0 into an isolated body, then blit
-            # (zero tail words add nothing — same trick as the element blit).
-            Wch1 = ((F * bps_e + 256) // 32) + 4
-            pb_local = jnp.full(B, (pb * pb_cands[0]) // 4, I32)
-            for res in res_list:
-                buf, blen, ovf = _entropy_body(
-                    res, ns, pb_local, cb, mb, kb, F, Wch1, enc_impl,
-                )
-                ovf_any = ovf_any | ovf
-                sc, _ = _emit_many(sc, sp, buf, 32)
-                sp = sp + blen
         else:
             pb_local = jnp.full(B, (pb * pb_cands[0]) // 4, I32)
             for res in res_list:
@@ -766,7 +643,7 @@ def encode_walk(
     words, bitpos = _emit(words, bitpos, jnp.full(B, 7, I32), jnp.full(B, 3, I32))
     pad = (8 - (bitpos & 7)) & 7
     words, bitpos = _emit(words, bitpos, jnp.zeros(B, I32), pad)
-    return words, bitpos, ovf_any
+    return words, bitpos
 
 
 def encode_packets_device(config: PacketConfig, spec, pcm_list) -> list[bytes]:
@@ -828,7 +705,7 @@ def encode_packets_device(config: PacketConfig, spec, pcm_list) -> list[bytes]:
         coefs_arr[ei, : len(cvals)] = cvals
         chan += w
 
-    words, bits, ovf = encode_walk(
+    words, bits = encode_walk(
         jnp.asarray(planes),
         jnp.asarray(ns),
         jnp.full(Bb, spec.mix_res, jnp.int32),
@@ -836,21 +713,14 @@ def encode_packets_device(config: PacketConfig, spec, pcm_list) -> list[bytes]:
         F, C, config.bit_depth, config.pb, config.mb, config.kb,
         elem_specs, max(spec.mix_bits, 0), spec.bytes_shifted,
         spec.use_lfe_tag, bool(spec.escape), bool(spec.auto_escape),
-        enc_impl=_IMPL,
     )
     words = np.asarray(words)
     bits = np.asarray(bits)
-    ovf = np.asarray(ovf)
 
     out = []
     be = words.astype(">i4").tobytes()
     row_bytes = words.shape[1] * 4
     for i in range(B):
-        if ovf[i]:
-            # Kernel overflow (pathological cross-lane output divergence):
-            # this lane's stream is unspecified — re-encode on the host.
-            out.append(host_encode(config, spec, pcm_list[i]))
-            continue
         nbytes = (int(bits[i]) + 7) // 8
         out.append(be[i * row_bytes : i * row_bytes + nbytes])
     return out

@@ -26,8 +26,8 @@ def extract_escape(words, res, esc, esc_base, esc_cb, role, frame_length, num_ch
     planes with order forced 0 so phase 2 passes them through.
 
     ``res`` is the walk's (F, C, B) F-major plane stack; the bit gather runs
-    lane-major (vread's layout) and transposes per plane — this whole
-    function sits behind an any(esc) cond and never runs on the hot path.
+    lane-major (vread's layout) and transposes per plane.  The caller gates
+    it on any(esc).
     """
     F = frame_length
     C = num_channels
@@ -66,79 +66,6 @@ def extract_shift(words, shift_base, bs, role, frame_length, num_channels):
         pos = shift_base[:, c][:, None] + i * stride + phase
         vals = vread(words, pos, jnp.maximum(width, 1))  # (B, F)
         planes.append(jnp.where((bs[:, c] > 0)[None, :], vals.T, 0))
-    return jnp.stack(planes, axis=1)
-
-
-def extract_shift_kernel(words, shift_base, bs, role, ns, frame_length, num_channels, impl):
-    """Pallas raw-reader version of :func:`extract_shift` for the dense path.
-
-    The XLA gather costs ~17 ns/element on TPU (a fully-shifted 24/32-bit
-    batch gathers F*C*B*2 words — ~1 s at production shapes, the same
-    disease the in-kernel escape walk cured); the raw reader streams the
-    shift region through the walk kernel's window machinery instead (lanes
-    = packets, so the word columns line up with the walk's transposed
-    layout without duplicating the stream).
-
-    Pair fusion: a CPE's shift region interleaves U/V values
-    (decoder.go:314-321, 492-502), so the U channel's reader fetches the
-    whole (u << w) | v pair as ONE 2w-bit value and the V channel splits it
-    with a mask — the V-channel reader call runs with every lane inactive
-    (its group loop takes zero trips), halving the streamed bits per pair."""
-    from .walk_kernel import raw_read_pallas
-
-    F = frame_length
-    C = num_channels
-    B = words.shape[0]
-    LB = (
-        1024
-        if B % 1024 == 0
-        else 512 if B % 512 == 0 else (256 if B % 256 == 0 else 128)
-    )
-    B_pad = ((B + LB - 1) // LB) * LB
-    wt = words.T
-    if B_pad != B:
-        wt = jnp.concatenate(
-            [wt, jnp.zeros((wt.shape[0], B_pad - B), wt.dtype)], axis=1
-        )
-
-    def pad(x):
-        if B_pad == B:
-            return x
-        return jnp.concatenate([x, jnp.zeros(B_pad - B, x.dtype)])
-
-    reads = []
-    for c in range(C):
-        width = bs[:, c] * 8
-        rl = role[:, c]
-        # Mono: w bits at stride w.  Pair U: the fused (u << w) | v value —
-        # 2w bits at stride 2w, phase 0.  Pair V: covered by the partner
-        # channel's read (masked inactive here).
-        stride = jnp.where(rl == 0, width, 2 * width)
-        rows = raw_read_pallas(
-            wt,
-            pad(shift_base[:, c]),
-            pad(stride),
-            pad(stride),
-            pad(((bs[:, c] > 0) & (rl != 2)).astype(jnp.int32)),
-            pad(ns),
-            F=F,
-            LB=LB,
-            signed=False,  # shift bits are OR-ed back in unsigned
-            interpret=impl == "pallas_interpret",
-        )
-        reads.append(rows[:F, :B])
-
-    planes = []
-    for c in range(C):
-        width = (bs[:, c] * 8)[None, :]
-        rl = role[:, c][None, :]
-        # U lanes: high half of the fused read; mono lanes: the value itself.
-        val = jnp.where(rl == 1, s(jax.lax.shift_right_logical(u(reads[c]), u(width))), reads[c])
-        if c > 0:
-            # V lanes: low half of the partner channel's fused read.
-            vmask = s(jax.lax.shift_left(u(jnp.ones_like(reads[c - 1])), u(width))) - 1
-            val = jnp.where(rl == 2, reads[c - 1] & vmask, val)
-        planes.append(jnp.where((bs[:, c] > 0)[None, :], val, 0))
     return jnp.stack(planes, axis=1)
 
 
@@ -200,13 +127,12 @@ def _finish_planes(mix, shift_vals, bs, mixbits, mixres, role, out_chan, filled,
     if depth == 20:
         chans = [s(jax.lax.shift_left(u(p), U32(4))) for p in chans]
 
-    # MPEG -> SMPTE remap via recorded out_chan (decoder.go:55-64).  Built as
-    # selects per output position rather than a scatter (TPU scatters over a
-    # per-lane minor index serialize); out_chan is a permutation per lane, so
-    # each output channel has at most one source.  Later slots win on
-    # (malformed) duplicates, matching the former scatter's write order; slots
-    # without a decoded element leave their SMPTE positions zero, matching the
-    # reference's zeroed output buffer.
+    # MPEG -> SMPTE remap via recorded out_chan (decoder.go:55-64), built
+    # as selects per output position rather than a scatter; out_chan is a
+    # permutation per lane, so each output channel has at most one source.
+    # Later slots win on (malformed) duplicates; slots without a decoded
+    # element leave their SMPTE positions zero, matching the reference's
+    # zeroed output buffer.
     planes = []
     for c_out in range(C):
         acc = jnp.zeros((F, B), I32)
@@ -229,9 +155,8 @@ def finish_packed(mix, shift_vals, bs, mixbits, mixres, role, out_chan, filled, 
 
     20/24-bit batches (3-byte LE triples, matrix.go:91-131) pack four
     samples into three int32 words arithmetically while still plane-major:
-    the u8 stack + minor-dim interleave copies of pack_output cost ~1 ms
-    per 2048x4096 stereo batch (five byte-granular passes); this is two
-    fused vector passes and a 3/4-weight relayout.  All other
+    two fused passes and a 3/4-weight relayout instead of pack_output's five
+    byte-granular passes.  All other
     depths/channel counts fall back to finish() + pack_output().
     """
     F = frame_length

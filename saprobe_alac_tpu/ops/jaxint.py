@@ -1,9 +1,10 @@
 """Vectorized fixed-width integer helpers with Go shift semantics (JAX).
 
-Mirror of codec/intops.py for traced arrays.  All values are int32 (bit
-patterns; unsigned interpretations are handled with explicit masks/bitcasts)
-— TPU vector lanes are 32-bit, and int32 add/sub/mul wrap two's complement
-exactly like Go.
+Mirror of codec/intops.py for traced arrays.  All values are int32 bit
+patterns: int32 add/sub/mul wrap two's complement exactly like Go's uint32
+and int32, and logical shifts act on the bits whatever the signedness.  The
+helpers use int32 operations only, so the same code traces inside the GPU
+kernels (ops/walk_kernel.py, ops/lpc_kernel.py) and in plain XLA.
 """
 
 from __future__ import annotations
@@ -29,14 +30,14 @@ def shl(x, n):
     """Go ``<< n`` on 32-bit values; n >= 32 yields 0.  n may be traced."""
     n = jnp.asarray(n, I32)
     nc = jnp.minimum(n, 31)
-    return jnp.where(n >= 32, 0, s(jax.lax.shift_left(u(jnp.asarray(x)), u(nc))))
+    return jnp.where(n >= 32, 0, jax.lax.shift_left(jnp.asarray(x, I32), nc))
 
 
 def ushr(x, n):
     """Go unsigned ``>> n``; n >= 32 yields 0."""
     n = jnp.asarray(n, I32)
     nc = jnp.minimum(n, 31)
-    return jnp.where(n >= 32, 0, s(jax.lax.shift_right_logical(u(jnp.asarray(x)), u(nc))))
+    return jnp.where(n >= 32, 0, jax.lax.shift_right_logical(jnp.asarray(x, I32), nc))
 
 
 def sshr(x, n):
@@ -64,25 +65,9 @@ def sext16(x):
 
 def clz(x):
     """Leading zeros of the 32-bit pattern."""
-    return jax.lax.clz(u(jnp.asarray(x))).astype(I32)
+    return jax.lax.clz(jnp.asarray(x, I32))
 
 
 def lg3a(x):
     """floor(log2(x+3)) (reference golomb.go:74-76)."""
     return 31 - clz(jnp.asarray(x, I32) + 3)
-
-
-def ult(a, b):
-    """Unsigned 32-bit a < b."""
-    return u(jnp.asarray(a)) < u(jnp.asarray(b))
-
-
-def ugt(a, b):
-    """Unsigned 32-bit a > b."""
-    return u(jnp.asarray(a)) > u(jnp.asarray(b))
-
-
-def umul_shr9(a, b):
-    """Go ``(a*b) >> 9`` on uint32 (wrapping multiply, logical shift)."""
-    prod = u(jnp.asarray(a)) * u(jnp.asarray(b))
-    return s(jax.lax.shift_right_logical(prod, U32(9)))

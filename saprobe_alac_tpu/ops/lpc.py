@@ -19,26 +19,13 @@ Special modes handled vectorially outside the loop:
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
 import jax.numpy as jnp
 
 from .jaxint import I32, s, sext, sext16, sshr, u
-
-#: FIR-scan implementation: "auto" uses the transposed Pallas kernel
-#: (ops/lpc_kernel.py) on TPU and the XLA fori elsewhere; "xla"/"pallas"
-#: force; "pallas_interpret" for CPU differential tests of the kernel.
-_IMPL = os.environ.get("SAPROBE_LPC_IMPL", "auto")
-
-
-def _kernel_impl(impl: str) -> bool:
-    if impl in ("pallas", "pallas_interpret"):
-        return True
-    if impl == "xla":
-        return False
-    return jax.default_backend() == "tpu"
+from .walk import resolve_impl
 
 #: Orders whose reference kernels keep int32 (non-wrapping) coef accumulation
 #: (predictor.go:99-618); all other orders wrap coefs to int16 per step.
@@ -56,166 +43,75 @@ def delta_decode(res_t, chan_bits, ns):
     return jnp.where(jnp.arange(res_t.shape[0])[:, None] == 0, res_t, out)
 
 
-def lpc_batch(res_t, order, mode, den, cb, ns, coefs, frame_length):
-    """Thin unjitted wrapper forwarding the module-level ``_IMPL`` selection
-    as a static jit argument (flipping it retraces — see walk.walk_batch)."""
-    return _lpc_batch(res_t, order, mode, den, cb, ns, coefs, frame_length, _IMPL)
+def lpc_batch(res_t, order, mode, den, cb, ns, coefs, frame_length, impl=None):
+    """Unjitted wrapper resolving ``impl`` (see ops/walk.default_impl)."""
+    return _lpc_batch(
+        res_t, order, mode, den, cb, ns, coefs, frame_length, resolve_impl(impl)
+    )
 
 
-@partial(jax.jit, static_argnames=("frame_length", "impl", "rows_nb", "taps"))
-def _lpc_batch(res_t, order, mode, den, cb, ns, coefs, frame_length, impl, rows_nb=None, taps=None):
+@partial(jax.jit, static_argnames=("frame_length", "impl"))
+def _lpc_batch(res_t, order, mode, den, cb, ns, coefs, frame_length, impl):
     """Reconstruct samples from residuals for all lanes.
 
-    res_t: (F, L) int32 entropy residuals, F-major (the walk kernel's row
-           layout — escape lanes hold raw samples and have order == 0).
-           With ``rows_nb`` set (kernel impls only), res_t is instead the
-           walk kernel's RAW rows buffer (passes*F_pad_w, rows_nb, SL, 128)
-           consumed in place by the FIR kernel — no merge select, no
-           residual relayout, no (F, L) materialization anywhere.
+    res_t: (F, L) int32 entropy residuals, F-major (escape lanes hold raw
+           samples and have order == 0).
     order, mode, den, cb, ns: (L,) int32.
     coefs: (L, 32) int32 (int16 range), zero beyond each lane's order.
 
-    Returns (F, L) int32 reconstructed channel samples, same layout — the
-    Pallas FIR kernel both reads and writes F-major, so the hot path has no
-    transpose anywhere; only the XLA scan fallback (CPU backends) converts
-    to lane-major and back around its dynamic-slice machinery.
+    Returns (F, L) int32 reconstructed channel samples, same layout.
     """
     F = frame_length
     L = order.shape[0]
 
     # Two-stage mode: delta pre-pass over the stream residuals
-    # (decoder.go:307-309: UnpcBlock in-place with order 31).  The Pallas
-    # kernel runs it in-kernel as a carried prefix (~3 vector ops/row); the
-    # XLA fallback keeps the gated (F, L) cumsum pass (~1.1 ms at production
-    # shapes, skipped when no lane needs it — real encoders emit mode == 0).
-    if not _kernel_impl(impl):
-        res_t = jax.lax.cond(
-            jnp.any(mode != 0),
-            lambda r: jnp.where((mode != 0)[None, :], delta_decode(r, cb, ns), r),
-            lambda r: r,
-            res_t,
-        )
+    # (decoder.go:307-309: UnpcBlock in-place with order 31), skipped when
+    # no lane needs it — real encoders emit mode == 0.
+    res_t = jax.lax.cond(
+        jnp.any(mode != 0),
+        lambda r: jnp.where((mode != 0)[None, :], delta_decode(r, cb, ns), r),
+        lambda r: r,
+        res_t,
+    )
 
     # Vectorized special orders.
     is_delta = order == 31
     is_fir = (order >= 1) & (order <= 30)
 
-    # den in [0,15]: den_half = 1 << (den-1) for den > 0 (predictor.go:48-51).
-    den_half = jnp.where(
-        den > 0, s(jax.lax.shift_left(u(jnp.ones(L, I32)), u(jnp.maximum(den - 1, 0)))), 0
-    )
-
     wrap16 = jnp.ones(L, dtype=bool)
     for o in _INT32_ORDERS:
         wrap16 = wrap16 & (order != o)
 
-    if _kernel_impl(impl):
-        from .lpc_kernel import lpc_fir_pallas
-
-        # Multiple of 16 = a whole PAIR of 8-row DMA chunks (the kernel's
-        # chunk loop runs two at a time, double-buffered staging).
-        F_pad = ((F + 15) // 16) * 16
-        if rows_nb is not None:
-            # Direct consumption of the walk kernel's raw rows buffer: its
-            # lane blocking fixes LB, and L is already whole blocks (the
-            # fused layout is only selected when B % 128 == 0).
-            if res_t.shape[2] == 16:
-                # The walk runs 2048-lane blocks (SL=16) to halve its
-                # sequential grid steps, but the FIR kernel measured faster
-                # at SL=8 (1.02 vs 1.12 ms at B=2048 F=4096 on v5e).  The
-                # (P, nb, 16, 128) buffer IS (P, 2*nb, 8, 128) in linear
-                # lane order (lane = nb*2048 + sl*128 + ln), so the view is
-                # a free row-major reshape, no relayout.
-                res_t = res_t.reshape(res_t.shape[0], -1, 8, 128)
-                rows_nb *= 2
-            LB = res_t.shape[2] * 128
-            L_pad = L
-            assert L % (rows_nb * LB) == 0, (L, rows_nb, LB)
-        else:
-            # Full (8, 128) vregs need 1024-lane blocks (same win as the walk
-            # kernel: half-empty vregs double the sequential grid steps).
-            LB = (
-                1024
-                if L % 1024 == 0
-                else 512 if L % 512 == 0 else (256 if L % 256 == 0 else 128)
-            )
-            L_pad = ((L + LB - 1) // LB) * LB
-
-        def padL(x, fill=0):
-            if L_pad == L:
-                return x
-            pad_shape = (L_pad - L,) + x.shape[1:]
-            return jnp.concatenate([x, jnp.full(pad_shape, fill, x.dtype)])
-
-        res_k = res_t
-        if rows_nb is None:
-            if F_pad != F:
-                res_k = jnp.concatenate(
-                    [res_k, jnp.zeros((F_pad - F, L), I32)], axis=0
-                )
-            if L_pad != L:
-                res_k = jnp.concatenate(
-                    [res_k, jnp.zeros((F_pad, L_pad - L), I32)], axis=1
-                )
-        # Order-31 delta lanes ride the kernel as class 2: a fixed
-        # order-1 / coef=1 / den=0 FIR with adaptation disabled is exactly
-        # the first-order delta recurrence (predictor.go:63-73; sext is a
-        # ring hom mod 2^cb so the stepwise sext chain equals the sexted
-        # cumsum).  Order-0/escape lanes already pass through in-kernel,
-        # so no post-kernel select pass is needed at all — that select and
-        # the gated delta_decode cond each cost a full (F, L) HBM pass.
-        fir_code = is_fir.astype(I32) + 2 * is_delta.astype(I32)
-        order_k = jnp.where(is_delta, 1, order)
-        den_k = jnp.where(is_delta, 0, den)
-        e0 = (jnp.arange(32, dtype=I32) == 0).astype(I32)
-        coefs_k = jnp.where(is_delta[:, None], e0[None, :], coefs)
-        coefs_t = padL(coefs_k).T  # (32, L_pad)
-        kargs = (
-            res_k,
-            padL(fir_code),
-            padL(order_k),
-            padL(den_k),
-            padL(jnp.maximum(cb, 1)),
-            padL(ns),
-            padL(wrap16),
-            padL(mode),
-        )
-        kw = dict(
-            F=F if rows_nb is not None else F_pad,
-            LB=LB,
-            interpret=impl == "pallas_interpret",
-            src_nb=rows_nb,
-        )
-
-        # Real encoders sit at orders 4-8 (the reference hand-unrolls
-        # exactly those, predictor.go:99-618); a 9-tap kernel variant runs
-        # ~3x fewer tap ops.  With ``taps`` static (the batch decoder's
-        # 9-then-retry-at-32 protocol; see _decode_core's `wide` flag) the
-        # variant is picked at trace time — the on-device lax.cond dispatch
-        # this replaces moved the big residual/output buffers through the
-        # conditional's boundary copies (~0.35 ms at B=2048 F=4096,
-        # hack/trace_top.py).  taps=None keeps the cond for standalone
-        # callers with no retry protocol.
-        if taps == 9:
-            out_t = lpc_fir_pallas(*kargs, coefs_t[:9], taps=9, **kw)
-        elif taps == 32:
-            out_t = lpc_fir_pallas(*kargs, coefs_t, taps=32, **kw)
-        else:
-            max_fir = jnp.max(jnp.where(is_fir, order, 0))
-            out_t = jax.lax.cond(
-                max_fir <= 8,
-                lambda: lpc_fir_pallas(*kargs, coefs_t[:9], taps=9, **kw),
-                lambda: lpc_fir_pallas(*kargs, coefs_t, taps=32, **kw),
-            )
-        return out_t[:F, :L]
-
-    # --- XLA scan fallback (CPU backends / tests): lane-major internally ---
     out0_t = jax.lax.cond(
         jnp.any(is_delta),
         lambda r: jnp.where(is_delta[None, :], delta_decode(r, cb, ns), r),
         lambda r: r,
         res_t,
     )
+
+    if impl != "xla":
+        from .lpc_kernel import LANES, lpc_fir_pallas
+
+        # Whole blocks of lanes for the kernel's programs; padded lanes are
+        # not FIR lanes, so the kernel leaves them alone.
+        pad = -L % LANES
+
+        def padl(x):
+            return jnp.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1))
+
+        out = lpc_fir_pallas(
+            jnp.pad(out0_t, ((0, 0), (0, pad))), padl(order), padl(den),
+            padl(jnp.clip(cb, 1, 32)), padl(ns), padl(wrap16), padl(is_fir),
+            padl(coefs).T, interpret=impl == "interpret",
+        )
+        return out[:, :L]
+
+    # den in [0,15]: den_half = 1 << (den-1) for den > 0 (predictor.go:48-51).
+    den_half = jnp.where(
+        den > 0, s(jax.lax.shift_left(u(jnp.ones(L, I32)), u(jnp.maximum(den - 1, 0)))), 0
+    )
+
+    # --- XLA scan: lane-major internally ---
     res = res_t.T
     out0 = out0_t.T
 

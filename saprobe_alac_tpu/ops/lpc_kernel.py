@@ -1,25 +1,19 @@
-"""Pallas TPU kernel: adaptive LPC reconstruction, transposed layout.
+"""GPU kernel for adaptive LPC reconstruction (Pallas, Triton route).
 
-The XLA scan (ops/lpc.py) pays the per-iteration fusion overhead F times
-(~236ms for L=4096 lanes at F=4096 on v5e); the earlier lanes-major Pallas
-attempt (ops/lpc_pallas.py) reads/writes one *column* per sample — a
-(L, 1) access that Mosaic cannot lower efficiently (and in fact fails to
-lower at all on current toolchains).
+One (packet, channel) lane per thread.  The recurrence is serial in time and
+independent per lane, so each program owns a power-of-two block of lanes and
+walks the samples in a loop inside the kernel.  A lane's output history and
+its adapting coefficients live in registers as lists of per-tap vectors:
+the history shift is SSA renaming and costs nothing.  Each step reads one
+residual row of the F-major (F, L) planes and writes the reconstructed row
+back in place: lanes are contiguous, so both accesses coalesce.
 
-This kernel works in the walk kernel's transposed layout: samples are rows,
-lanes are the minor dimension, so the per-sample residual read and output
-write are contiguous (1, LB) rows.  The 32-deep output history and the
-adapting coefficient vector live as 32 + 32 loop-carried vector registers —
-the history "shift" is pure SSA renaming, costing nothing.  Per sample the
-kernel does ~300 vector ops on (SL, 128) registers; residuals stream in and
-output rows stream out through double-buffered 8-row VMEM staging (two
-buffers + semaphores per direction alternate across chunks, so neither the
-input fill nor the output flush stalls the row loop — the same probe-driven
-fix as the walk kernel's staging DMA).
+Every lane runs the 32-tap body; taps at or beyond a lane's order are
+masked.  Non-FIR lanes (order 0, order 31, escape) are left untouched; the
+XLA wrapper in ops/lpc.py prepares them.
 
-Math is identical to ops/lpc.py (predicated sign-walk via exclusive suffix
-sums, Go fixed-width semantics — predictor.go:99-682); non-FIR lanes
-(order 0/31, escape) bypass in the XLA wrapper exactly as in lpc_batch.
+Math is ops/lpc.py's XLA scan step for step (predicated sign-walk via
+exclusive suffix sums, Go fixed-width semantics — predictor.go:99-682).
 """
 
 from __future__ import annotations
@@ -29,414 +23,112 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-I32 = jnp.int32
-U32 = jnp.uint32
+from .jaxint import I32, sext, sext16, sshr
 
-_CHUNK = 8  # output rows per DMA (8-sublane tile alignment)
-_TAPS = 32
-
-
-def _u(x):
-    return jax.lax.bitcast_convert_type(x.astype(I32), U32)
-
-
-def _s(x):
-    return jax.lax.bitcast_convert_type(x.astype(U32), I32)
+#: Lanes per program and warps per program (see walk_kernel.LANES; LPC
+#: time hardly moves between 16 and 128 lanes as long as each thread owns
+#: one lane).
+LANES = 32
+NUM_WARPS = 1
+#: History depth and coefficient slots, as in the (L, 32) coefficient
+#: layout (FIR orders go up to 30).
+TAPS = 32
 
 
-def _shl_v(x, n):
-    if isinstance(n, int):  # Mosaic bitcast needs vectors; keep statics static
-        return _s(jax.lax.shift_left(_u(x), U32(n))) if n < 32 else jnp.zeros_like(x)
-    nc = jnp.minimum(n, 31)
-    return jnp.where(n >= 32, 0, _s(jax.lax.shift_left(_u(x), _u(nc))))
+def _sel(vs, k):
+    """vs[k] for per-lane k (out-of-range k reads as zero)."""
+    out = jnp.zeros_like(vs[0])
+    for i, v in enumerate(vs):
+        out = jnp.where(k == i, v, out)
+    return out
 
 
-def _sshr_v(x, n):
-    if isinstance(n, int):
-        return jax.lax.shift_right_arithmetic(x.astype(I32), I32(min(n, 31)))
-    return jax.lax.shift_right_arithmetic(
-        x.astype(I32), jnp.where(n >= 32, 31, jnp.minimum(n, 31))
-    )
-
-
-def _sext_v(x, bits):
-    cs = 32 - bits  # bits in [1, 32] -> cs in [0, 31]
-    return _sshr_v(_shl_v(x, cs), cs)
-
-
-def _sext16(x):
-    return _sshr_v(_shl_v(x, 16), 16)
-
-
-def _sign(x):
-    # jnp.sign on int32 trips Mosaic ("unsupported target bitwidth for
-    # truncation"); compare-selects lower cleanly.
-    return jnp.where(x > 0, 1, jnp.where(x < 0, -1, 0)).astype(I32)
-
-
-def _wsel(regs, j):
-    level = list(regs)
-    bit = 1
-    while len(level) > 1:
-        level = [
-            jnp.where((j & bit) != 0, level[2 * i + 1], level[2 * i])
-            for i in range(len(level) // 2)
-        ]
-        bit <<= 1
-    return level[0]
-
-
-def _lpc_kernel(
-    res_ref,  # (F_pad, NB, SL, 128) HBM (ANY): residual rows; with src_nb
-    #           set, the walk kernel's RAW rows buffer
-    #           (passes*src_fpad, src_nb, SL, 128), channel-major lanes
-    fir_ref,  # (1, SL, 128) lane class: 0 bypass, 1 FIR+adapt, 2 delta31
-    order_ref,
-    den_ref,
-    cb_ref,
-    ns_ref,
-    wrap_ref,
-    mode_ref,  # (1, SL, 128) mode != 0: two-stage delta pre-pass in-kernel
-    coefs_ref,  # (_TAPS, LB): transposed per-lane coefficients
-    out_ref,  # (F_pad, NB, SL, 128) OUTPUT in HBM (ANY)
-    res_a,  # VMEM (CHUNK, SL, 128): input staging, even chunks
-    res_b,  # VMEM (CHUNK, SL, 128): input staging, odd chunks
-    stage_a,  # VMEM (CHUNK, SL, 128): output staging, even chunks
-    stage_b,  # VMEM (CHUNK, SL, 128): output staging, odd chunks
-    in_a,
-    in_b,
-    out_a,
-    out_b,
-    *,
-    F: int,
-    LB: int,
-    taps: int,
-    interpret: bool,
-    src_nb: int | None = None,
-    src_fpad: int | None = None,
-    forward: bool = False,
+def _kernel(
+    buf_in_ref, order_ref, den_ref, cb_ref, ns_ref, wrap_ref, fir_ref,
+    coef_ref, buf_ref, *, lanes_per_program,
 ):
-    SL = LB // 128
-    pid = pl.program_id(0)  # at body top: DMA index expressions need it
+    del buf_in_ref  # aliased to buf_ref
+    lc = pl.program_id(0) * lanes_per_program + jnp.arange(
+        lanes_per_program, dtype=I32
+    )
+    order = order_ref[lc]
+    den = den_ref[lc]
+    cb = cb_ref[lc]
+    ns = ns_ref[lc]
+    wrap16 = wrap_ref[lc] != 0
+    is_fir = fir_ref[lc] != 0
+    den_half = jnp.where(
+        den > 0, jax.lax.shift_left(jnp.ones_like(den), jnp.maximum(den - 1, 0)), 0
+    )
+    t_end = jnp.max(jnp.where(is_fir, ns, 1))
+    out0 = buf_ref[0, lc]
 
-    def vec(x):
-        return x.reshape(SL, 128)
+    coefs0 = tuple(coef_ref[k, lc] for k in range(TAPS))
+    hist0 = (out0,) + tuple(jnp.zeros_like(out0) for _ in range(TAPS - 1))
 
-    is_fir = vec(fir_ref[...]).astype(I32)
-    order = vec(order_ref[...])
-    den = vec(den_ref[...])
-    cb = vec(cb_ref[...])
-    ns = vec(ns_ref[...])
-    wrap16 = vec(wrap_ref[...])
-    is_mode = vec(mode_ref[...]) != 0
-
-    one = jnp.ones((SL, 128), I32)
-    den_half = jnp.where(den > 0, _shl_v(one, jnp.maximum(den - 1, 0)), 0)
-
-    # Whole-chunk reads keep a leading dimension on every reshape —
-    # (rows, LB) -> (rows, SL, 128) is a minor-dim split Mosaic lowers
-    # cleanly, whereas a (1, LB) -> (SL, 128) row reshape is an invalid
-    # relayout.  Rows within a chunk unroll statically.
-    coefs0 = coefs_ref[...].reshape(taps, SL, 128)
-    # Per-tap static masks/weights: tap k active iff k < order.
-    tmask = [(order > k).astype(I32) for k in range(taps)]
-    weight = [order - k for k in range(taps)]
-
-    # History and coefficients are carried as single (32, SL, 128) arrays —
-    # Mosaic fails layout unification ("invalid relayout ... replicated in
-    # destination") when 32 separate registers rotate through a fori carry,
-    # but a stacked array carry lowers cleanly; rows unpack statically.
-    hist0 = jnp.zeros((taps, SL, 128), I32)
-
-    NCH = F // _CHUNK  # F is a multiple of _CHUNK (F_pad)
-
-    def row_step(t, delta_raw, hist_arr, coefs_arr, prev):
-        """One sample: returns (out_row, hist', coefs', prev').
-
-        forward=False (decode): ``delta_raw`` is the residual row; out is
-        the reconstruction, which feeds the history.  forward=True (encode,
-        ops/encode_device.py): ``delta_raw`` is the SIGNAL row x[t]; the
-        history is past x (known input, so the only loop-carried recurrence
-        is the coefficient adaptation), out is the residual, and ``prev``
-        carries the mode>0 two-stage delta POST-pass instead of the decode
-        pre-pass.  Prediction and adaptation math are shared — encode is
-        the same recurrence solved for delta instead of out."""
-        hist = [hist_arr[k] for k in range(taps)]
-        coefs = [coefs_arr[k] for k in range(taps)]
-        # Scalar-vs-vector compares make Mosaic materialize scalar i1
-        # broadcasts ("unsupported target bitwidth for truncation"); keep the
-        # sample index as a vector.
-        tv = jnp.zeros((SL, 128), I32) + t
-
-        if not forward:
-            # mode > 0 two-stage delta pre-pass (decoder.go:307-309) as a
-            # carried prefix: d[0] = res[0] (raw, predictor.go:53), d[t] =
-            # sext(d[t-1] + res[t]) — equal to the sexted wrapping cumsum
-            # (sext is a ring hom mod 2^cb), so this matches ops/lpc.py's
-            # delta_decode bit for bit while costing ~3 vector ops instead
-            # of a gated (F, L) XLA pass.
-            d0 = _sext_v(prev + delta_raw, cb)
-            delta = jnp.where(is_mode & (tv >= 1), d0, delta_raw)
-            prev = jnp.where(is_mode, delta, prev)
-
-        active = (is_fir >= 1) & (tv < ns) & (tv >= 1)
-
-        # top = out[t-1-order]: order can equal taps-1's +1 neighbor, so
-        # the select list is hist padded to the next power of two (padding
-        # is never selected: the dispatch guarantees order <= taps-1).
-        pad_n = (1 << max(taps - 1, 1).bit_length()) - taps
-        top = _wsel(hist + [jnp.zeros((SL, 128), I32)] * pad_n, order)
+    def step(t, carry):
+        hist, coefs = carry  # hist[k] = out[t-1-k]
+        active = is_fir & (t < ns)
+        top = _sel(hist, order)  # out[t-1-order]
 
         # Prediction (predictor.go:647-656): wrapping int32 dot.
-        acc = jnp.zeros((SL, 128), I32)
-        for k in range(taps):
-            acc = acc + coefs[k] * (hist[k] - top) * tmask[k]
-        sum1 = _sshr_v(acc + den_half, den)
+        acc = jnp.zeros_like(top)
+        for k in range(TAPS):
+            acc = acc + jnp.where(k < order, coefs[k] * (hist[k] - top), 0)
+        sum1 = sshr(acc + den_half, den)
 
-        warm = tv <= order
-        if forward:
-            xt = delta_raw
-            fir_delta = _sext_v(xt - top - sum1, cb)
-            warm_delta = _sext_v(xt - hist[0], cb)
-            delta = jnp.where(warm, warm_delta, fir_delta)
-            res_row = jnp.where(active, delta, xt)
-            # mode > 0 two-stage delta POST-pass: the stream carries
-            # delta'd residuals (the decoder un-deltas first).
-            out_row = jnp.where(
-                is_mode & (tv >= 1), _sext_v(res_row - prev, cb), res_row
-            )
-            prev = jnp.where(is_mode, res_row, prev)
-        else:
-            fir_val = _sext_v(delta + top + sum1, cb)
-            warm_val = _sext_v(delta + hist[0], cb)
-            val = jnp.where(warm, warm_val, fir_val)
-            out_row = jnp.where(active, val, delta)
-
-        # Coefficient adaptation (predictor.go:660-682), predicated walk.
-        # Class-2 lanes (order-31 delta, folded in as a fixed order-1 /
-        # coef=1 / den=0 FIR — predictor.go:63-73 is exactly that
-        # recurrence) never adapt.
-        sign = _sign(delta)
-        adapt_base = active & (is_fir == 1) & (sign != 0) & ~warm
-        contribs = []
-        sgns = []
-        for k in range(taps):
-            dd = top - hist[k]
-            sg = _sign(dd) * sign
-            contribs.append(weight[k] * _sshr_v(sg * dd, den) * tmask[k])
-            sgns.append(sg)
-        # Exclusive suffix sums over taps (walk order k = order-1 .. 0).
-        T = jnp.zeros((SL, 128), I32)
-        Ts = [None] * taps
-        for k in range(taps - 1, -1, -1):
-            Ts[k] = T
-            T = T + contribs[k]
-        newcoefs = []
-        for k in range(taps):
-            del0 = delta - Ts[k]
-            # select between int32 masks, not i1 vectors (Mosaic truncation)
-            run = jnp.where(sign > 0, (del0 > 0).astype(I32), (del0 < 0).astype(I32))
-            adapt = adapt_base & (run == 1) & (tmask[k] == 1)
-            newc = coefs[k] - sgns[k]
-            newc = jnp.where(wrap16 == 1, _sext16(newc), newc)
-            newcoefs.append(jnp.where(adapt, newc, coefs[k]))
-
-        fed = delta_raw if forward else out_row  # encode history is the input
-        hist_arr = jnp.concatenate([fed[None], hist_arr[: taps - 1]], axis=0)
-        return out_row, hist_arr, jnp.stack(newcoefs), prev
-
-    if src_nb is None:
-        def in_copy(ci, res_st, sem):
-            return pltpu.make_async_copy(
-                res_ref.at[pl.ds(ci * _CHUNK, _CHUNK), pid], res_st, sem
-            )
-    else:
-        # Direct consumption of the walk kernel's raw rows buffer: lanes are
-        # channel-major (lane = c*B + b), so grid cell pid covers channel
-        # c = pid // src_nb at the walk's lane block nb = pid % src_nb, whose
-        # rows live at [c*src_fpad, c*src_fpad + F).  src_fpad >= F_pad
-        # always (both round F up to 16: 2*_K_ROWS == 2*_CHUNK == 16).
-        c_src = pid // src_nb
-        nb_src = pid % src_nb
-
-        def in_copy(ci, res_st, sem):
-            return pltpu.make_async_copy(
-                res_ref.at[pl.ds(c_src * src_fpad + ci * _CHUNK, _CHUNK), nb_src],
-                res_st,
-                sem,
-            )
-
-    def out_copy(ci, stage_st, sem):
-        return pltpu.make_async_copy(
-            stage_st, out_ref.at[pl.ds(ci * _CHUNK, _CHUNK), pid], sem
+        delta = buf_ref[t, lc]
+        warm = t <= order
+        val = jnp.where(
+            warm, sext(delta + hist[0], cb), sext(delta + top + sum1, cb)
         )
+        plgpu.store(buf_ref.at[t, lc], val, mask=active)
 
-    def chunk_half(ci, st, res_st, stage_st, in_sem, out_sem, not_first):
-        """One chunk with double-buffered staging on both directions: the
-        input fill for chunk ci was started two chunks back (a full chunk
-        of compute has elapsed — the synchronous per-chunk start+wait pair
-        this replaces stalled the row loop on HBM latency twice per chunk);
-        the output wait lands two chunks later, and the NEXT fill of this
-        buffer kicks off unwaited after the rows are consumed.  (Interpret
-        emulates copies synchronously — a deferred wait spins — so it runs
-        the sync pattern.)"""
-        hist, coefs, prev = st
-        if interpret:
-            cin = in_copy(ci, res_st, in_sem)
-            cin.start()
-            cin.wait()
-        else:
-            in_copy(ci, res_st, in_sem).wait()
+        # Coefficient adaptation (predictor.go:660-682), predicated walk
+        # from tap order-1 down to 0; T is the exclusive suffix sum.
+        sign = jnp.sign(delta)
+        can = active & (sign != 0) & ~warm
+        new = list(coefs)
+        T = jnp.zeros_like(top)
+        for k in reversed(range(TAPS)):
+            on = k < order
+            dd = top - hist[k]
+            sgn = jnp.sign(dd) * sign
+            contrib = jnp.where(on, (order - k) * sshr(sgn * dd, den), 0)
+            del0 = delta - T
+            run_k = jnp.where(sign > 0, del0 > 0, del0 < 0) & on
+            nc = coefs[k] - sgn
+            nc = jnp.where(wrap16, sext16(nc), nc)
+            new[k] = jnp.where(can & run_k, nc, coefs[k])
+            T = T + contrib
+        return (val,) + hist[:-1], tuple(new)
 
-            @pl.when(not_first)
-            def _():
-                # The copy of this SAME stage buffer two chunks back must be
-                # done before this chunk's rows overwrite it.
-                out_copy(ci - 2, stage_st, out_sem).wait()
-
-        # One driver for hardware AND interpret (the tested code is the
-        # shipped code): a fori over the chunk rows.  Measured identical to
-        # a static 8-row unroll on the real chip (Mosaic schedules across
-        # the loop either way; bench.py delta < timing noise), and the
-        # unrolled form interprets ~5x slower.  NB: the row must be loaded
-        # from the VMEM ref at the dynamic index — dynamic_slice on a
-        # register *value* does not lower (Mosaic has no dynamic_slice for
-        # KernelType.TC).
-        def rbody(rk, st):
-            hist, coefs, prev = st
-            delta = res_st[rk]
-            out_row, hist, coefs, prev = row_step(
-                ci * _CHUNK + rk, delta, hist, coefs, prev
-            )
-            stage_st[pl.ds(rk, 1)] = out_row[None]
-            return hist, coefs, prev
-
-        hist, coefs, prev = jax.lax.fori_loop(0, _CHUNK, rbody, (hist, coefs, prev))
-
-        dma = out_copy(ci, stage_st, out_sem)
-        dma.start()
-        if interpret:
-            dma.wait()
-        else:
-            # Refill this input buffer for chunk ci+2 (the rows were all
-            # consumed by the fori above); hidden behind the next chunk.
-            @pl.when(ci + 2 < NCH)
-            def _():
-                in_copy(ci + 2, res_st, in_sem).start()
-
-        return hist, coefs, prev
-
-    if not interpret:
-        in_copy(0, res_a, in_a).start()
-        in_copy(1, res_b, in_b).start()
-
-    def chunk_pair(cp, st):
-        # Two chunks per trip with statically alternating buffers and
-        # semaphores (dynamic semaphore indexing does not lower).
-        st = chunk_half(2 * cp, st, res_a, stage_a, in_a, out_a, cp > 0)
-        st = chunk_half(2 * cp + 1, st, res_b, stage_b, in_b, out_b, cp > 0)
-        return st
-
-    jax.lax.fori_loop(
-        0, NCH // 2, chunk_pair, (hist0, coefs0, jnp.zeros((SL, 128), I32))
-    )
-
-    if not interpret:
-        # Drain the two in-flight output copies (descriptor offsets name the
-        # last pair; only the semaphore + transfer size matter for the wait).
-        out_copy(NCH - 2, stage_a, out_a).wait()
-        out_copy(NCH - 1, stage_b, out_b).wait()
+    jax.lax.fori_loop(1, t_end, step, (hist0, coefs0))
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("F", "LB", "taps", "interpret", "src_nb", "forward"),
-)
-def lpc_fir_pallas(
-    res_t, is_fir, order, den, cb, ns, wrap16, mode, coefs_t,
-    *, F, LB=512, taps=_TAPS, interpret=False, src_nb=None, forward=False,
-):
-    """FIR reconstruction over transposed (F_pad, L) residuals.
+def lpc_fir_pallas(buf, order, den, cb, ns, wrap16, is_fir, coefs_t, *, interpret=False):
+    """Run the FIR recurrence in place on the F-major (F, L) planes.
 
-    is_fir is a per-lane class code: 0 = bypass (order-0/escape lanes — the
-    kernel emits the residual unchanged, which IS their reconstruction),
-    1 = adaptive FIR, 2 = order-31 delta (fixed order-1 FIR, no adapt).
-    mode != 0 lanes run the two-stage delta pre-pass in-kernel
-    (decoder.go:307-309).  Returns out_t (F_pad, L); rows at t >= ns carry
-    the raw residual (garbage region, masked by the epilogue's ns trim).
-
-    With ``src_nb`` set, res_t is the walk kernel's RAW rows buffer
-    (passes*src_fpad, src_nb, SL, 128) consumed in place — lanes are
-    channel-major over it (lane = c*B + b with B = src_nb*LB), no residual
-    relayout or merge anywhere between the two kernels.
+    ``buf`` holds the residuals of FIR lanes (row 0 is the warm-up sample,
+    passed through); rows of other lanes are returned unchanged.  L must be
+    a multiple of LANES.  coefs_t: (32, L) initial coefficients, zero beyond
+    each lane's order.
     """
-    if src_nb is None:
-        F_pad, L = res_t.shape
-        src_fpad = None
-        res_in = res_t.reshape(F_pad, L // LB, LB // 128, 128)
-    else:
-        rows_total, nb_in, SL_in, _ = res_t.shape
-        assert nb_in == src_nb and SL_in * 128 == LB, (res_t.shape, src_nb, LB)
-        passes = is_fir.shape[0] // (src_nb * LB)
-        src_fpad = rows_total // passes
-        F_pad = ((F + 2 * _CHUNK - 1) // (2 * _CHUNK)) * (2 * _CHUNK)
-        assert F_pad <= src_fpad, (F_pad, src_fpad)
-        L = is_fir.shape[0]
-        res_in = res_t
-    assert L % LB == 0 and F_pad % (2 * _CHUNK) == 0  # whole chunk PAIRS
-    SL = LB // 128
-    nblocks = L // LB
-
-    assert taps in (9, _TAPS) and coefs_t.shape[0] == taps
-    kern = functools.partial(
-        _lpc_kernel, F=F_pad, LB=LB, taps=taps, interpret=interpret,
-        src_nb=src_nb, src_fpad=src_fpad, forward=forward,
-    )
-    lane_spec = pl.BlockSpec((1, SL, 128), lambda i: (i, 0, 0), memory_space=pltpu.VMEM)
-
-    def lanes(x):
-        return x.reshape(nblocks, SL, 128)
-
-    out = pl.pallas_call(
-        kern,
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            lane_spec,
-            lane_spec,
-            lane_spec,
-            lane_spec,
-            lane_spec,
-            lane_spec,
-            lane_spec,
-            pl.BlockSpec((taps, LB), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        out_shape=jax.ShapeDtypeStruct((F_pad, nblocks, SL, 128), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((_CHUNK, SL, 128), jnp.int32),
-            pltpu.VMEM((_CHUNK, SL, 128), jnp.int32),
-            pltpu.VMEM((_CHUNK, SL, 128), jnp.int32),
-            pltpu.VMEM((_CHUNK, SL, 128), jnp.int32),
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-        ],
+    F, L = buf.shape
+    assert L % LANES == 0, L
+    kernel = functools.partial(_kernel, lanes_per_program=LANES)
+    return pl.pallas_call(
+        kernel,
+        grid=(L // LANES,),
+        out_shape=jax.ShapeDtypeStruct((F, L), I32),
+        input_output_aliases={0: 0},
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
+        name="alac_lpc_fir",
     )(
-        res_in,
-        lanes(is_fir.astype(jnp.int32)),
-        lanes(order),
-        lanes(den),
-        lanes(cb),
-        lanes(ns),
-        lanes(wrap16.astype(jnp.int32)),
-        lanes(mode.astype(jnp.int32)),
+        buf, order, den, cb, ns, wrap16.astype(I32), is_fir.astype(I32),
         coefs_t,
     )
-    # (F_pad, NB, SL, 128) -> (F_pad, L): minor-dim collapse, columns are
-    # already in block-major lane order (lane = nb*LB + s*128 + l).
-    return out.reshape(F_pad, L)

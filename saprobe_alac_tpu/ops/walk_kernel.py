@@ -1,1394 +1,216 @@
-"""Pallas TPU kernels: dense-emission adaptive Golomb-Rice entropy decode,
-and the fused element kernel (header/coefficient parse + 2-pass walk).
+"""GPU kernel for the per-channel entropy walk (Pallas, Triton route).
 
-The XLA lane-parallel walk (ops/walk.py) hits a hard per-sample overhead
-floor on real TPUs: ~7 kernel fusions per decoded sample (~15us per
-micro-step at B=2048) plus a residual scatter whose per-update cost (~6ns)
-makes positioned writes the bottleneck.  Hardware reality: the VPU has no
-per-lane scatter/gather, so any "write residual at per-lane position
-count[lane]" formulation pays for it.
+One packet per thread.  Each program owns a power-of-two block of lanes and
+loops (``lax.while_loop`` inside the kernel) until every lane of the block
+has finished its channel.  A lane's cursor, adaptive mean, zero-run mode
+and sample count live in registers; each step it loads the four stream
+words under its cursor (a per-lane gather that stays in L1 as the cursor
+walks forward), decodes one Golomb-Rice codeword plus an optional zero-run
+code from them, and stores the residual into the F-major (F, C, B) planes
+with a per-lane masked store.  Zero-run samples are never stored: the
+planes start zeroed.
 
-The entropy kernel removes both problems with a *dense emission schedule*:
-output row t is produced by every lane at step t — a lane either decodes its
-next codeword, drains one zero from a pending zero-run (zero-runs cost no
-bits), or emits a dummy zero when done.  Staging row t therefore IS residual
-row t: no positioning, no scatter — rows stream to HBM at uniform offsets.
-The price is worst-case window budgeting (a decoding row consumes at most 66
-bits: escape codeword 9+32 plus zero-run code 9+16), giving K = 11
-guaranteed rows per 1024-bit register window.
+The math is the lockstep XLA walk's (ops/walk.py ``_entropy_channel``) step
+for step; ``entropy_channel_pallas`` is a drop-in replacement for it whose
+residual buffer is the (F, C, B) stack instead of the flat scatter buffer.
 
-Window fetch is the other TPU-hostile part (per-lane word positions).  It
-runs as a two-level one-hot (masked-sum) pipeline:
-  L1  per-lane superblock pair (2 x 32 blocks = 16 KiB of stream) rebuilt
-      only when some lane's cursor leaves it (every ~20 refills); the
-      word stream stays in HBM and is DMA-streamed through a small VMEM
-      chunk window during the rebuild, with chunks no lane needs skipped
-      (a full VMEM copy of the stream would exceed the ~16 MiB VMEM
-      budget at 1024-lane blocks),
-  L2  the 4-block (1024-bit) window selected from the 64-row L1 scratch
-      every refill.
-Lane blocks are 1024 wide so every vector register is a full (8, 128)
-tile (512-lane blocks left the vregs half-empty).
-Bit extraction from the 32 window registers uses 5-level binary select
-trees — pure vector ALU, measured ~50ns per decoded row per 1024 lanes
-on v5e (see docs/PERFORMANCE.md).
-
-The ELEMENT kernel (`dense_element_pallas`) additionally parses the SCE/CPE
-element header and predictor coefficients in a prologue on the same resident
-window (decoder.go:210-265, 348-460 semantics) before running the walk.
-On the XLA side those ~25 field reads were per-lane minor-axis gathers
-(~17ns/element, ~1ms per slot at B=2048); on the resident window they are a
-few thousand fused vector ops (~tens of us).  DSE/FIL, END and
-error/validation semantics match ops/walk.py's `_parse_elem` bit for bit.
-Escape elements decode IN the group loop too: raw lanes ride the same
-rows as fixed-width readers (sign-extended 32-bit window reads at a
-per-lane stride — decoder.go:326-345/507-535, with CPE's interleaved U/V
-mapped onto the two walk passes), so full-escape (noise) batches run at
-kernel speed instead of a whole-batch XLA bit gather.
-
-Behavioral parity: golomb.go:112-253 (adaptive Golomb, escape, zero-run
-semantics, uint32-wrap mean), bitbuffer.go:28-32 (zero-pad reads past the
-packet end), decoder.go:210-265/348-460 (element headers, partial frames,
-escape, shift regions).  Bit-for-bit equivalence with the scalar oracle is
-enforced by tests/test_walk_kernel.py and the batch differential suites.
+Behavioral parity: golomb.go:112-253 (adaptive Golomb, escape, zero-run,
+uint32-wrap mean), bitbuffer.go:28-32 (zero-pad reads past the packet end).
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .walk import (  # shared error codes
-    ERR_ELEMENT,
-    ERR_HEADER,
-    ERR_NONE,
-    ERR_OVERRUN,
-    ERR_SAMPLES,
-    ERR_SHIFT,
-    ERR_WIDTH,
-)
+from .jaxint import I32, clz, lg3a, shl, ushr
+from .walk import ERR_NONE, ERR_OVERRUN, ERR_SAMPLES
 
-I32 = jnp.int32
-U32 = jnp.uint32
+#: Lanes per program and warps per program.  Few lanes per program spread a
+#: batch over many SMs; the walk is latency-bound per thread, not
+#: throughput-bound per SM.  Chosen by hack/kernel_compare.py --sweep on an
+#: H100 at B=2048, F=4096 (see PERF.md).
+LANES = 16
+NUM_WARPS = 1
 
-#: Window geometry: 4 blocks of 8 words, 256-bit aligned -> off0 <= 255.
-_BLK = 8
-_WIN_BLOCKS = 4
-_NWIN = _WIN_BLOCKS * _BLK  # 32 words = 1024 bits
-#: Worst-case bits consumed by one decoding row (escape 9+32, zero-run 9+16).
-_WORST = 66
-#: Output rows staged in VMEM between HBM flushes (8-sublane DMA alignment).
-_K_ROWS = 8
-#: Row-start bound: a row starting at off < _REFRESH_AT reads words
-#: (off>>5)..(off>>5)+3 <= 30 — bits off..off+127 all inside the 32-word
-#: window.
-_REFRESH_AT = 896
-#: Group-start refresh threshold: the window refresh is *data-dependent* but
-#: checked once per _K_ROWS-row group (per-row scalar reductions cost more
-#: than the refills they avoid).  A group starting with every active lane
-#: below _GROUP_AT keeps all its row starts below _REFRESH_AT even at the
-#: worst-case _WORST bits per row.
-_GROUP_AT = _REFRESH_AT - (_K_ROWS - 1) * _WORST  # = 434
-#: Parse-prologue refresh threshold before the V-channel predictor header:
-#: after a refresh the offset is <= 255 and the remaining V reads span at
-#: most 16 (mode/den + pbf/num) + 32*16 (coefs) + 32 (read slack) = 560
-#: bits -> 815 < 1024.  Without a refresh the V region must start below
-#: 1024 - 560 = 464.
-_PARSE_REFRESH = 448
-#: L1 scratch: per-lane superblock pair (2 x 32 blocks).
-_SB_BLOCKS = 32
-_L1_BLOCKS = 2 * _SB_BLOCKS  # 64 block rows
-#: Stream chunk for L1 rebuilds: words stay in HBM and are streamed through
-#: a small VMEM window (a full VMEM copy of the stream at production widths
-#: is ~8 MiB per 512 lanes — at LB=1024 it would exceed the ~16 MiB VMEM
-#: budget, and the L1 rebuild is the only consumer).
-_CHUNK_ROWS = 64  # block rows per chunk
-_CHUNK_WORDS = _CHUNK_ROWS * _BLK
-#: Rows collected in registers per staging store (see _walk_groups): the
-#: per-row dynamic store is the largest single row cost; batching R rows
-#: into one (R, SL, 128) store amortizes it.  Probe-overridable (emitN);
-#: ALAC_EMIT_R overrides for hardware tuning runs (hack/trace_top.py).
-_EMIT_R = int(os.environ.get("ALAC_EMIT_R", "1"))
-
-#: Element-kernel metadata rows (kernel -> XLA), all absolute bit positions.
-META_ROWS = 82
-(
-    M_TAG, M_NS, M_BSF, M_ESC, M_COMP, M_MIXBITS, M_MIXRES,
-    M_MODE_U, M_DEN_U, M_NUM_U, M_MODE_V, M_DEN_V, M_NUM_V,
-    M_SHIFT_BASE, M_ESC_BASE, M_ESC_END, M_SCE, M_CPE,
-) = range(18)
-M_COEFS_U = 18  # rows 18..49
-M_COEFS_V = 50  # rows 50..81
+#: Stream words each step loads under the cursor: a sample consumes at most
+#: 66 bits (escape codeword 9+32, then the zero-run code's top 25 bits), and
+#: the cursor sits anywhere in its first word, so 4 words (128 bits) cover it.
+_WIN_WORDS = 4
 
 
-def _u(x):
-    return jax.lax.bitcast_convert_type(x.astype(I32), U32)
+def _lsr(x, n: int):
+    return jax.lax.shift_right_logical(x, I32(n))
 
 
-def _s(x):
-    return jax.lax.bitcast_convert_type(x.astype(U32), I32)
+def _sel(ws, k):
+    """ws[k] for per-lane k (out-of-range k reads as zero)."""
+    out = jnp.zeros_like(ws[0])
+    for i, w in enumerate(ws):
+        out = jnp.where(k == i, w, out)
+    return out
 
 
-def _clz(x):
-    return jax.lax.clz(_u(x)).astype(I32)
-
-
-def _shl(x, n):
-    if isinstance(n, int):
-        return _s(jax.lax.shift_left(_u(x), U32(n))) if n < 32 else jnp.zeros_like(x)
-    nc = jnp.minimum(n, 31)
-    return jnp.where(n >= 32, 0, _s(jax.lax.shift_left(_u(x), _u(nc))))
-
-
-def _ushr(x, n):
-    if isinstance(n, int):
-        return _s(jax.lax.shift_right_logical(_u(x), U32(n))) if n < 32 else jnp.zeros_like(x)
-    nc = jnp.minimum(n, 31)
-    return jnp.where(n >= 32, 0, _s(jax.lax.shift_right_logical(_u(x), _u(nc))))
-
-
-def _sshr(x, n):
-    if isinstance(n, int):
-        return jax.lax.shift_right_arithmetic(x.astype(I32), I32(min(n, 31)))
-    return jax.lax.shift_right_arithmetic(
-        x.astype(I32), jnp.where(n >= 32, 31, jnp.minimum(n, 31))
+def _kernel(
+    words_ref, size_ref, pos_ref, err_ref, act_ref, chan_ref, pb_ref,
+    msz_ref, ns_ref, _res_in_ref, res_ref, pos_out_ref, err_out_ref,
+    *, W, F, kb, mb, lanes_per_program,
+):
+    lc = pl.program_id(0) * lanes_per_program + jnp.arange(
+        lanes_per_program, dtype=I32
     )
+    size = size_ref[lc]
+    pos0 = pos_ref[lc]
+    err0 = err_ref[lc]
+    chan = chan_ref[lc]
+    pb_local = pb_ref[lc]
+    msz = msz_ref[lc]
+    ns = ns_ref[lc]
+    wb = (1 << kb) - 1 if kb < 32 else -1
 
+    def word(j):
+        w = words_ref[lc, jnp.clip(j, 0, W - 1)]
+        return jnp.where((j >= 0) & (j < W), w, 0)
 
-def _lg3a(x):
-    return 31 - _clz(x + 3)
+    def cond(st):
+        act, it = st[0], st[-1]
+        return (jnp.max(act.astype(I32)) > 0) & (it < F + 4)
 
+    def body(st):
+        act, pos, err, count, mean, zmode, it = st
 
-def _wsel(regs, j):
-    """regs[j] per lane for a power-of-two list of vector registers."""
-    level = list(regs)
-    bit = 1
-    while len(level) > 1:
-        level = [
-            jnp.where((j & bit) != 0, level[2 * i + 1], level[2 * i])
-            for i in range(len(level) // 2)
-        ]
-        bit <<= 1
-    return level[0]
+        # Overrun guard (golomb.go:168-170); negative = Go uint32 wrap.
+        over = act & ((pos >= size) | (pos < 0))
+        err = jnp.where(over, ERR_OVERRUN, err)
+        act = act & ~over
 
+        j = jax.lax.shift_right_arithmetic(pos, I32(5))
+        ws = [word(j + i) for i in range(_WIN_WORDS)]
+        wsn = ws[1:] + [jnp.zeros_like(ws[0])]
 
-def _mix(a, b, rbits):
-    """32 bits starting rbits into the (a, b) word pair."""
-    return _s(
-        jax.lax.shift_left(_u(a), _u(rbits))
-        | jax.lax.shift_right_logical(
-            jax.lax.shift_right_logical(_u(b), U32(1)), _u(31 - rbits)
-        )
-    )
-
-
-def _stream_fns(words_hbm, chunk_ref, l1_ref, win_ref, words_sem, SL, LB, NB, lane0):
-    """Build the two-level one-hot stream fetch pipeline (shared by the raw
-    entropy kernel and the fused element kernel)."""
-
-    def l1_fill(sb):
-        """Rebuild the per-lane superblock pair: l1[slot] = block sb*32+slot,
-        l1[32+slot] = block (sb+1)*32+slot.  The slot index rb mod 32 is
-        lane-invariant, so each source row has a lane-uniform destination;
-        per-lane selection happens in the masks.  Exactly one source row
-        matches each (slot, lane), so select-accumulate over a zeroed scratch
-        reconstructs the pair; blocks past the stream end stay zero
-        (bitbuffer.go:28-32 zero-pad semantics).  The stream is DMA-streamed
-        from HBM through chunk_ref (the full stream never lives in VMEM)."""
-        l1_ref[...] = jnp.zeros((_L1_BLOCKS * _BLK, LB), I32)
-        sb1 = sb + 1
-
-        def chunk(c, _):
-            # Chunk c covers superblocks {2c, 2c+1}; skip it unless some
-            # lane's pair {sb, sb+1} lands there (lanes advance in near
-            # lockstep, so typically only 1-2 of the chunks are fetched).
-            need_c = jnp.any((sb + 1 >= 2 * c) & (sb <= 2 * c + 1))
-
-            @pl.when(need_c)
-            def _():
-                _chunk_fill(c)
-
-            return 0
-
-        def _chunk_fill(c):
-            cdma = pltpu.make_async_copy(
-                words_hbm.at[pl.ds(c * _CHUNK_WORDS, _CHUNK_WORDS), pl.ds(lane0, LB)],
-                chunk_ref,
-                words_sem,
+        def win32(q):
+            """The 32 stream bits at bit ``q`` of the loaded words."""
+            k = _lsr(q, 5)
+            r = q & 31
+            a = _sel(ws, k)
+            b = _sel(wsn, k)
+            return jax.lax.shift_left(a, r) | jax.lax.shift_right_logical(
+                _lsr(b, 1), 31 - r
             )
-            cdma.start()
-            cdma.wait()
 
-            def row(r, _):
-                rb = c * _CHUNK_ROWS + r
-                slot = rb % _SB_BLOCKS
-                blk = chunk_ref[pl.ds(r * _BLK, _BLK), :]  # (8, LB)
-                rb_sb = rb // _SB_BLOCKS
-                m0 = (sb == rb_sb).astype(I32).reshape(1, SL, 128)
-                m1 = (sb1 == rb_sb).astype(I32).reshape(1, SL, 128)
-                b3 = blk.reshape(_BLK, SL, 128)
-                acc0 = l1_ref[pl.ds(slot * _BLK, _BLK), :].reshape(_BLK, SL, 128)
-                acc1 = l1_ref[pl.ds((_SB_BLOCKS + slot) * _BLK, _BLK), :].reshape(_BLK, SL, 128)
-                l1_ref[pl.ds(slot * _BLK, _BLK), :] = jnp.where(m0 == 1, b3, acc0).reshape(
-                    _BLK, LB
-                )
-                l1_ref[pl.ds((_SB_BLOCKS + slot) * _BLK, _BLK), :] = jnp.where(
-                    m1 == 1, b3, acc1
-                ).reshape(_BLK, LB)
-                return 0
+        r0 = pos & 31
+        m0 = _lsr(mean, 9)
+        k = jnp.minimum(lg3a(m0), kb)
+        m = shl(1, k) - 1
 
-            jax.lax.fori_loop(0, _CHUNK_ROWS, row, 0)
+        win = win32(r0)
+        pre = clz(~win)
 
-        jax.lax.fori_loop(0, NB // _CHUNK_ROWS, chunk, 0)
+        # Escape: prefix >= 9 -> raw max_size bits (golomb.go:184-186).
+        is_esc = pre >= 9
+        val_esc = ushr(win32(r0 + 9), 32 - jnp.maximum(msz, 1))
+        bits_esc = 9 + msz
 
-    def refill_window(bi, sb, mask):
-        """Select the 4 window blocks bi..bi+3 from the 64-row L1 scratch
-        into win_ref.  Out-of-range rows contribute zero (reference zero-pad
-        semantics).
+        # Normal: value from prefix and k-bit remainder (golomb.go:188-201).
+        win2 = shl(win, pre + 1)
+        v = ushr(win2, 32 - k)
+        vbig = v >= 2
+        val_n = jnp.where(k != 1, jnp.where(vbig, pre * m + v - 1, pre * m), pre)
+        bits_n = pre + 1 + jnp.where(k != 1, jnp.where(vbig, k, k - 1), 0)
 
-        ``mask`` is the set of lanes that may read the window before their
-        own next refresh (live decoders plus pending pass-2 lanes); lanes
-        outside it get unspecified window rows.  Lanes advance in near
-        lockstep, so the scan runs over the dynamic row range
-        [min nbi, max nbi + 4) of the masked lanes — typically a handful of
-        rows — instead of all 64 (measured ~29% of the kernel at the full
-        scan, hack/walk_probe.py)."""
-        nbi = bi - sb * _SB_BLOCKS  # in [0, 62] for masked lanes
-        lo = jnp.maximum(jnp.min(jnp.where(mask, nbi, _L1_BLOCKS)), 0)
-        hi = jnp.minimum(jnp.max(jnp.where(mask, nbi, 0)), _L1_BLOCKS - 1)
-        end = jnp.minimum(hi + _WIN_BLOCKS, _L1_BLOCKS)
-        accs = [jnp.zeros((_BLK, SL, 128), I32) for _ in range(_WIN_BLOCKS)]
+        value = jnp.where(is_esc, val_esc, val_n)
+        nbits = jnp.where(is_esc, bits_esc, bits_n)
 
-        def row(nb, accs):
-            blk = l1_ref[pl.ds(nb * _BLK, _BLK), :].reshape(_BLK, SL, 128)
-            rel = nb - nbi  # per-lane
-            out = []
-            for t in range(_WIN_BLOCKS):
-                m = (rel == t).astype(I32).reshape(1, SL, 128)
-                out.append(jnp.where(m == 1, blk, accs[t]))
-            return tuple(out)
-
-        accs = jax.lax.fori_loop(lo, end, row, tuple(accs))
-        for t in range(_WIN_BLOCKS):
-            for w in range(_BLK):
-                win_ref[pl.ds((t * _BLK + w) * SL, SL), :] = accs[t][w]
-
-    return l1_fill, refill_window
-
-
-def _walk_groups(
-    st0,
-    *,
-    l1_fill,
-    refill_window,
-    win_ref,
-    rows_ref,
-    stage_a,
-    stage_b,
-    dma_a,
-    dma_b,
-    pid,
-    SL,
-    kb,
-    NPAIR,
-    NR,
-    trips,
-    passes,
-    act2v,
-    pb2,
-    mb0,
-    max_size,
-    ns,
-    size_bits,
-    interpret,
-    probe,
-    raw=None,
-    rstep=None,
-    rawcb=None,
-    raw_vpos=None,
-    raw_signed=True,
-):
-    """The dense-emission group loop (shared by both kernels).
-
-    st0 = (act, off, err, count, mean, zmode, zrem, base, sb, pbl); `trips`
-    is the number of group PAIRS to run (may be traced: the element kernel
-    skips the all-idle second pass of an SCE-only batch).  Returns the final
-    state after draining the two in-flight staging copies.
-
-    raw (optional, element kernel only): per-lane escape mask — those lanes
-    emit fixed-width ``rawcb``-bit reads advancing ``rstep`` bits per row
-    (decoder.go:326-345/507-535 raw sample layout: SCE consecutive, CPE
-    U/V interleaved so both passes stride 2*cb), bypassing every Golomb
-    state update.  ``raw_vpos`` is the pass-2 start cursor (esc_base + cb);
-    the pass switch rewinds raw lanes there — a backward jump, handled by
-    the extra need_l1 rewind arm below."""
-    wb_mask = (1 << kb) - 1 if kb < 32 else -1
-    z = jnp.zeros((SL, 128), I32)
-
-    # Emission batching: rows staged per VMEM store.  The per-row dynamic
-    # (1, SL, 128) store is the single largest row cost on hardware
-    # (hack/walk_probe.py: nostore saves ~46%); collecting _EMIT_R rows in
-    # registers and storing one (_EMIT_R, SL, 128) block amortizes the
-    # dynamic addressing and lets Mosaic schedule across the unrolled rows.
-    R = _EMIT_R
-    for tok in ("emit1", "emit2", "emit4", "emit8"):
-        if tok in probe:
-            R = int(tok[4:])
-    assert _K_ROWS % R == 0
-
-    def one_group(g, st, stage, sem, not_first):
-        act, off, err, count, mean, zmode, zrem, base, sb, pbl = st
-
-        # Group-level data-dependent window refresh: ONE cross-lane
-        # reduction + predicated re-select per _K_ROWS rows (scalar
-        # reductions and VMEM re-loads per row cost more than they save).
-        # Invariant: every row in the group starts at off <= _REFRESH_AT-1,
-        # so its window reads stay inside the 1024-bit window — guaranteed
-        # by guarding the group start at _GROUP_AT and bounding each row at
-        # _WORST bits.  Music-like streams (~25-30 bits/row) refresh every
-        # ~2 groups instead of every group (the old worst-case budget).
-        needw = jnp.any((act == 1) & (off >= _GROUP_AT))
-        if "norefill" in probe:  # probe: cost of refresh checks + refills
-            needw = jnp.bool_(False)
-        bitpos_cur = base + off
-        bi = _sshr(bitpos_cur, 8)
-        dist = bi - sb * _SB_BLOCKS
-        far = dist > _L1_BLOCKS - 1 - _WIN_BLOCKS
-        if raw is not None:
-            # The raw pass-2 rewind can land BELOW the resident superblock
-            # pair (the U pass consumed the whole interleaved region).
-            far = far | (dist < 0)
-        need_l1 = needw & jnp.any((act == 1) & far)
-        sb = jnp.where(need_l1, _sshr(bi, 5), sb)
-
-        @pl.when(need_l1)
-        def _():
-            l1_fill(sb)
-
-        # Refill coverage: lanes live now OR reactivating at the pass-2
-        # switch (their cursors idle between finishing pass 1 and the
-        # switch, and may resume below _GROUP_AT — their window rows must
-        # stay valid across intervening refreshes).
-        live = (act == 1) | (act2v == 1)
-
-        @pl.when(needw)
-        def _():
-            refill_window(bi, sb, live)
-
-        base = jnp.where(needw, _shl(bi, 8), base)
-        off = jnp.where(needw, bitpos_cur & 255, off)
-
-        # Window registers for the whole group: loaded once, loop-invariant
-        # across the _K_ROWS row iterations.
-        ws = [win_ref[pl.ds(i * SL, SL), :] for i in range(_NWIN)]
-        wtab = [ws, ws[1:] + [z], ws[2:] + [z, z], ws[3:] + [z, z, z]]
-
-        def fetch4(off):
-            """Words j..j+3 at j = off>>5 — four select trees shared by
-            all three window reads of a row (start, escape at +9,
-            zero-run at +nbits<=41 then +25 bits: every consumer stays
-            within 4 words)."""
-            if "nofetch" in probe:  # probe: cost of the select trees
-                return [ws[0], ws[1], ws[2], ws[3]], off & 31
-            j = _sshr(off, 5)
-            return [_wsel(wtab[i], j) for i in range(4)], off & 31
-
-        def row_math(rst):
-            """One row's decode math; returns (emit, rst') — no store."""
-            (act, off, err, count, mean, zmode, zrem) = rst
-
-            off_row0 = off
-
-            dec = act * (zrem == 0).astype(I32)
-            zdrain = act * (zrem > 0).astype(I32)
-            if raw is not None:
-                rawact = act * raw
-                dec = dec * (1 - raw)
-
-            # Overrun guard (golomb.go:168-170); negative = Go uint32 wrap.
-            curpos = base + off
-            over = (dec == 1) & ((curpos >= size_bits) | (curpos < 0))
-            err = jnp.where(over, ERR_OVERRUN, err)
-            act = act * (1 - over.astype(I32))
-            dec = dec * (1 - over.astype(I32))
-
-            m0 = _s(jax.lax.shift_right_logical(_u(mean), U32(9)))
-            k32p = jnp.minimum(_lg3a(m0), kb)
-            m = _shl(jnp.ones_like(k32p), k32p) - 1
-
-            w4, r0 = fetch4(off)
-            win = _mix(w4[0], w4[1], r0)
-            pre = _clz(~win)
-
-            is_esc = pre >= 9
-            val_esc = _ushr(win_at(w4, r0, jnp.full_like(r0, 9)), 32 - jnp.maximum(max_size, 1))
-            bits_esc = 9 + max_size
-
-            win2 = _shl(win, pre + 1)
-            v = _ushr(win2, 32 - k32p)
-            vbig = v >= 2
-            val_n = jnp.where(k32p != 1, jnp.where(vbig, pre * m + v - 1, pre * m), pre)
-            bits_n = pre + 1 + jnp.where(k32p != 1, jnp.where(vbig, k32p, k32p - 1), 0)
-
-            value = jnp.where(is_esc, val_esc, val_n)
-            nbits = jnp.where(is_esc, bits_esc, bits_n)
-
-            # Signed mapping (golomb.go:206-212), wrapping 32-bit.
-            nd = value + zmode
-            mult = 1 - 2 * (nd & 1)
-            delta = _s(jax.lax.shift_right_logical(_u(nd + 1), U32(1))) * mult
-
-            # Raw escape lanes: the sample IS the top rawcb bits of the
-            # 32-bit window, sign-extended (one arithmetic shift — the
-            # window fetch is already paid for the whole row in lockstep);
-            # cursor advances the fixed per-lane stride.
-            if raw is not None:
-                sh = _sshr if raw_signed else _ushr
-                rawval = sh(win, 32 - rawcb)
-                emit = jnp.where(dec == 1, delta, rawact * rawval)
-            else:
-                emit = jnp.where(dec == 1, delta, 0)
-
-            adv = ((dec == 1) | (zdrain == 1)).astype(I32)
-            if raw is not None:
-                adv = adv | rawact
-                off = jnp.where(rawact == 1, off + rstep, off)
-            count = count + adv
-            off = jnp.where(dec == 1, off + nbits, off)
-            zrem = jnp.where(zdrain == 1, zrem - 1, zrem)
-
-            # Adaptive mean (golomb.go:215-218): uint32 wrap arithmetic.
-            pblu = _u(pbl)
-            mean_n = _s(
-                pblu * _u(nd)
-                + _u(mean)
-                - jax.lax.shift_right_logical(pblu * _u(mean), U32(9))
-            )
-            mean_n = jnp.where(_u(value) > 0xFFFF, 0xFFFF, mean_n)
-            mean = jnp.where(dec == 1, mean_n, mean)
-            zmode = jnp.where(dec == 1, 0, zmode)
-
-            if "nozrun" not in probe:  # probe: cost of the zero-run secondary decode
-                # Zero-run trigger (golomb.go:223-246); (mean<<2) < 512 unsigned.
-                zc = (dec == 1) & (_u(_shl(mean, 2)) < 512) & (count < ns)
-                k32 = jnp.maximum(
-                    _clz(mean) - 24 + _s(jax.lax.shift_right_logical(_u(mean + 16), U32(6))), 0
-                )
-                mz = (_shl(jnp.ones_like(k32), k32) - 1) & wb_mask
-
-                # off has advanced by nbits (<= 41) for dec lanes; still in w4.
-                zwin = win_at(w4, r0, off - off_row0)
-                zpre = _clz(~zwin)
-                z_esc = zpre >= 9
-                zval_esc = _ushr(_shl(zwin, 9), 16)
-                zwin2 = _shl(zwin, zpre + 1)
-                zv = _ushr(zwin2, 32 - jnp.maximum(k32, 1))
-                zv = jnp.where(k32 == 0, 0, zv)
-                zvbig = zv >= 2
-                zrun = jnp.where(z_esc, zval_esc, jnp.where(zvbig, zpre * mz + zv - 1, zpre * mz))
-                zbits = jnp.where(z_esc, 25, zpre + 1 + jnp.where(zvbig, k32, k32 - 1))
-
-                zover = zc & (count + zrun > ns)
-                err = jnp.where(zover, ERR_SAMPLES, err)
-                act = act * (1 - zover.astype(I32))
-                zc = zc & ~zover
-
-                zrem = jnp.where(zc, zrun, zrem)
-                off = jnp.where(zc, off + zbits, off)
-                zmode = jnp.where(zc, jnp.where(zrun >= 65535, 0, 1), zmode)
-                mean = jnp.where(zc, 0, mean)
-
-            act = act * (count < ns).astype(I32) * (err == ERR_NONE).astype(I32)
-            return emit, (act, off, err, count, mean, zmode, zrem)
-
-        def win_at(w4, r, d):
-            """win32(off+d) from the shared words, d a vector in [0, 72]."""
-            rz = r + d
-            q = _sshr(rz, 5)  # 0..2
-            rr = rz & 31
-            a = jnp.where(q == 0, w4[0], jnp.where(q == 1, w4[1], w4[2]))
-            b = jnp.where(q == 0, w4[1], jnp.where(q == 1, w4[2], w4[3]))
-            return _mix(a, b, rr)
-
-        # A synchronous per-group start+wait stalls ~40% of the kernel; the
-        # copy of the SAME slot two groups back must be done before this
-        # group's stores reuse the buffer, so wait for it here (a full
-        # group's compute has elapsed since it started) and kick the new
-        # copy off unwaited below.  (Interpret mode emulates copies
-        # synchronously — a deferred wait spins — so it waits inline below.)
-        if "nodma" not in probe and not interpret:  # probe: per-group DMA cost
-
-            @pl.when(not_first)
-            def _():
-                pltpu.make_async_copy(
-                    stage, rows_ref.at[pl.ds(g * _K_ROWS, _K_ROWS), pid], sem
-                ).wait()
-
-        # Dense emission: decoded delta, raw sample, drained zero, or dummy
-        # zero, staged in the register-native (SL, 128) tile layout — a
-        # flat (LB,) row store would stripe one register's sublanes across
-        # lane-tiles at a single sublane, a per-row relayout shuffle.
-        # R rows are collected in registers per (R, SL, 128) store; a fori
-        # carries the state between blocks (a full static unroll of the
-        # group measured no better and interprets ~3x slower).
-        def block_body(kb2, rst):
-            emits = []
-            for _ in range(R):
-                emit, rst = row_math(rst)
-                emits.append(emit)
-            if "nostore" not in probe:  # probe: cost of the staging store
-                if R == 1:
-                    stage[pl.ds(kb2, 1)] = emits[0][None]
-                else:
-                    stage[pl.ds(kb2 * R, R)] = jnp.stack(emits)
-            return rst
-
-        rst = (act, off, err, count, mean, zmode, zrem)
-        act, off, err, count, mean, zmode, zrem = jax.lax.fori_loop(
-            0, _K_ROWS // R, block_body, rst
+        # Signed mapping (golomb.go:206-212), wrapping 32-bit.
+        nd = value + zmode
+        delta = _lsr(nd + 1, 1) * (1 - 2 * (nd & 1))
+        plgpu.store(
+            res_ref.at[jnp.clip(count, 0, F - 1), chan, lc], delta, mask=act
         )
 
-        # Stream the staged rows to HBM at the uniform row offset (rows_ref
-        # is the FULL (F_pad, NB, SL, 128) array in HBM: ANY-space blocks
-        # cannot be lane-partitioned, so the kernel addresses its own lane
-        # block (dim 1) itself).
-        if "nodma" not in probe:
-            dma = pltpu.make_async_copy(
-                stage, rows_ref.at[pl.ds(g * _K_ROWS, _K_ROWS), pid], sem
-            )
-            dma.start()
-            if interpret:
-                dma.wait()
+        count_n = jnp.where(act, count + 1, count)
+        q = r0 + nbits
 
-        return act, off, err, count, mean, zmode, zrem, base, sb, pbl
+        # Adaptive mean (golomb.go:215-218): uint32 wrap arithmetic.
+        mean_n = pb_local * nd + mean - _lsr(pb_local * mean, 9)
+        mean_n = jnp.where((value < 0) | (value > 0xFFFF), 0xFFFF, mean_n)
+        mean = jnp.where(act, mean_n, mean)
+        zmode = jnp.where(act, 0, zmode)
 
-    def group_pair(gp, st):
-        # Two groups per iteration with statically alternating buffers and
-        # semaphores (dynamic semaphore indexing does not lower).
-        if passes == 2:
-            # Channel switch at the pass boundary: reactivate the pass-2
-            # lanes (CPE right channels) at their current bit cursors with
-            # fresh entropy state and the pass-2 tuning.  Vectorize the
-            # pair index first (Mosaic scalar-vs-vector compare pitfall).
-            act, off, err, count, mean, zmode, zrem, base, sb, pbl = st
-            sw = (jnp.zeros((SL, 128), I32) + gp) == NPAIR
-            act = jnp.where(sw, act2v * (err == ERR_NONE).astype(I32), act)
-            count = jnp.where(sw, 0, count)
-            mean = jnp.where(sw, mb0, mean)
-            zmode = jnp.where(sw, 0, zmode)
-            zrem = jnp.where(sw, 0, zrem)
-            pbl = jnp.where(sw, pb2, pbl)
-            if raw is not None:
-                # Interleaved raw CPE: V samples sit at esc_base + cb +
-                # i*2cb — REWIND raw lanes to raw_vpos (compressed lanes'
-                # V residuals follow U in the stream, so they continue).
-                # Encode the cursor with off >= _GROUP_AT so the next
-                # group's refresh re-anchors base/window before any read
-                # (backward distance handled by the need_l1 rewind arm).
-                sel = sw & (raw == 1)
-                offv = (raw_vpos & 255) + 512
-                base = jnp.where(sel, raw_vpos - offv, base)
-                off = jnp.where(sel, offv, off)
-            st = (act, off, err, count, mean, zmode, zrem, base, sb, pbl)
-        st = one_group(2 * gp, st, stage_a, dma_a, gp > 0)
-        st = one_group(2 * gp + 1, st, stage_b, dma_b, gp > 0)
-        return st
+        # Zero-run mode (golomb.go:223-246); (mean<<2) < 512 unsigned.
+        m4 = shl(mean, 2)
+        zcond = act & (m4 >= 0) & (m4 < 512) & (count_n < ns)
+        k32 = jnp.maximum(clz(mean) - 24 + _lsr(mean + 16, 6), 0)
+        mz = (shl(1, k32) - 1) & wb
 
-    st = jax.lax.fori_loop(0, trips, group_pair, st0)
+        zwin = win32(jnp.clip(q, 0, 32 * _WIN_WORDS - 1))
+        zpre = clz(~zwin)
+        z_esc = zpre >= 9
+        zval_esc = _lsr(shl(zwin, 9), 16)
+        zwin2 = shl(zwin, zpre + 1)
+        zv = ushr(zwin2, 32 - jnp.maximum(k32, 1))
+        zv = jnp.where(k32 == 0, 0, zv)
+        zvbig = zv >= 2
+        zval_n = jnp.where(zvbig, zpre * mz + zv - 1, zpre * mz)
+        zbits_n = zpre + 1 + jnp.where(zvbig, k32, k32 - 1)
+        zrun = jnp.where(z_esc, zval_esc, zval_n)
+        zbits = jnp.where(z_esc, 9 + 16, zbits_n)
 
-    # Drain the two in-flight copies (descriptor offsets name the last pair;
-    # only the semaphore + transfer size matter for the wait).  With a
-    # traced trip count the loop may not have run at all (all-idle slot):
-    # never wait on a semaphore no copy was started against.
-    if "nodma" not in probe and not interpret:
+        zover = zcond & (count_n + zrun > ns)
+        err = jnp.where(zover, ERR_SAMPLES, err)
+        act = act & ~zover
+        zcond = zcond & ~zover
 
-        def _drain():
-            pltpu.make_async_copy(
-                stage_a, rows_ref.at[pl.ds((NR - 2) * _K_ROWS, _K_ROWS), pid], dma_a
-            ).wait()
-            pltpu.make_async_copy(
-                stage_b, rows_ref.at[pl.ds((NR - 1) * _K_ROWS, _K_ROWS), pid], dma_b
-            ).wait()
+        count_n = jnp.where(zcond, count_n + zrun, count_n)
+        q = jnp.where(zcond, q + zbits, q)
+        zmode = jnp.where(zcond, jnp.where(zrun >= 65535, 0, 1), zmode)
+        mean = jnp.where(zcond, 0, mean)
 
-        if isinstance(trips, int):
-            _drain()
-        else:
+        pos = jnp.where(act, pos - r0 + q, pos)
+        act = act & (count_n < ns) & (err == ERR_NONE)
+        return act, pos, err, count_n, mean, zmode, it + 1
 
-            @pl.when(trips > 0)
-            def _():
-                _drain()
-
-    return st
+    act0 = (act_ref[lc] != 0) & (ns > 0) & (err0 == ERR_NONE)
+    zero = jnp.zeros_like(pos0)
+    st = (act0, pos0, err0, zero, jnp.full_like(pos0, mb), zero, jnp.int32(0))
+    act, pos, err, *_ = jax.lax.while_loop(cond, body, st)
+    err = jnp.where(act, ERR_OVERRUN, err)  # guard-tripped lanes
+    pos_out_ref[lc] = pos
+    err_out_ref[lc] = err
 
 
-def _dense_kernel(
-    words_hbm,  # (W_pad, B) int32 HBM (ANY): word-major packed streams
-    bitpos_ref,  # (SL, 128)
-    act_ref,  # (SL, 128) int32 mask
-    pb_ref,  # (SL, 128)
-    maxsz_ref,  # (SL, 128)
-    ns_ref,  # (SL, 128)
-    sizebits_ref,  # (SL, 128)
-    mb_ref,  # (SL, 128)
-    act2_ref,  # (SL, 128) pass-2 lane mask (all-zero when passes == 1)
-    pb2_ref,  # (SL, 128) pass-2 entropy tuning
-    rows_ref,  # (passes*F_pad, NB_blocks, SL, 128) OUTPUT in HBM (ANY)
-    bitpos_out,  # (SL, 128)
-    err_out,  # (SL, 128)
-    chunk_ref,  # VMEM scratch (_CHUNK_WORDS, LB): streaming window over words
-    l1_ref,  # VMEM scratch (_L1_BLOCKS*_BLK, LB): per-lane superblock pair
-    win_ref,  # VMEM scratch (_NWIN*SL, 128): current 32-word window
-    stage_a,  # VMEM scratch (_K_ROWS, SL, 128): staging, even groups
-    stage_b,  # VMEM scratch (_K_ROWS, SL, 128): staging, odd groups
-    words_sem,
-    dma_a,  # DMA semaphore, even groups
-    dma_b,  # DMA semaphore, odd groups
-    *,
-    kb: int,
-    F: int,
-    W_pad: int,
-    LB: int,
-    passes: int = 1,
-    interpret: bool = False,
-    probe: str = "",
+def entropy_channel_pallas(
+    words, size_bits, bitpos, err, res, active, chan, pb_local, max_size, ns,
+    *, kb, mb, interpret=False,
 ):
-    SL = LB // 128
-    NB = W_pad // _BLK  # block rows in the stream
-    pid = pl.program_id(0)  # at body top: DMA index expressions need it
-    lane0 = pl.multiple_of(pid * LB, LB)
+    """Entropy-decode one channel for every active lane.
 
-    def vec(x):
-        return x.reshape(SL, 128)
-
-    bitpos = vec(bitpos_ref[...])
-    act0 = vec(act_ref[...])
-    pbl = vec(pb_ref[...])
-    max_size = vec(maxsz_ref[...])
-    ns = vec(ns_ref[...])
-    size_bits = vec(sizebits_ref[...])
-    mb0 = vec(mb_ref[...])
-    # Pass-2 lanes get the same zero-sample guard as pass 1.
-    act2v = vec(act2_ref[...]) * (vec(ns_ref[...]) > 0).astype(I32)
-    pb2 = vec(pb2_ref[...])
-
-    # Inactive lanes keep bitpos; guard against negative cursors up front.
-    act = act0 * (ns > 0).astype(I32)
-
-    # Staged row groups, rounded to a PAIR (matches the F_pad rounding in
-    # the wrapper: the group loop runs two at a time — double-buffered
-    # staging).  With passes == 2 the loop simply keeps going: rows F_pad..
-    # hold the second channel, whose residual block follows the first in
-    # the bitstream.
-    NPAIR = pl.cdiv(F, 2 * _K_ROWS)  # group pairs per pass
-    NR = passes * 2 * NPAIR
-
-    l1_fill, refill_window = _stream_fns(
-        words_hbm, chunk_ref, l1_ref, win_ref, words_sem, SL, LB, NB, lane0
-    )
-
-    # ---- initial L1 fill + loop state ----
-    bi0 = _sshr(bitpos, 8)  # window block index
-    sb0 = _sshr(bi0, 5)  # superblock (32-block) index
-    l1_fill(sb0)
-    refill_window(bi0, sb0, (act == 1) | (act2v == 1))
-
-    z = jnp.zeros((SL, 128), I32)
-    st = (
-        act,
-        bitpos & 255,
-        jnp.zeros((SL, 128), I32),
-        z,
-        mb0,
-        z,
-        z,
-        _shl(bi0, 8),
-        sb0,
-        pbl,
-    )
-    act, off, err, count, mean, zmode, zrem, base, sb, pbl = _walk_groups(
-        st,
-        l1_fill=l1_fill,
-        refill_window=refill_window,
-        win_ref=win_ref,
-        rows_ref=rows_ref,
-        stage_a=stage_a,
-        stage_b=stage_b,
-        dma_a=dma_a,
-        dma_b=dma_b,
-        pid=pid,
-        SL=SL,
-        kb=kb,
-        NPAIR=NPAIR,
-        NR=NR,
-        trips=NR // 2,
-        passes=passes,
-        act2v=act2v,
-        pb2=pb2,
-        mb0=mb0,
-        max_size=max_size,
-        ns=ns,
-        size_bits=size_bits,
-        interpret=interpret,
-        probe=probe,
-    )
-
-    # Lanes still active after NR groups decoded every row; lanes that died
-    # with an error keep their code.  (The XLA walk's divergence guard is not
-    # needed: the row count is statically F.)
-    bitpos_out[...] = jnp.where(act0 == 1, base + off, bitpos).reshape(bitpos_ref.shape)
-    err_out[...] = err.reshape(bitpos_ref.shape)
-
-
-def _element_kernel(
-    words_hbm,  # (W_pad, B) int32 HBM (ANY): word-major packed streams
-    bitpos_ref,  # (SL, 128) element-start bit positions
-    pact_ref,  # (SL, 128) int32: lanes at an element this slot
-    sizebits_ref,  # (SL, 128)
-    ns_ref,  # (SL, 128) incoming per-packet sample count (partial default)
-    allowcpe_ref,  # (SL, 128) int32: chan + 2 <= C
-    rows_ref,  # (passes*F_pad, NB_blocks, SL, 128) OUTPUT in HBM (ANY)
-    bitpos_out,  # (SL, 128) post-entropy cursor for compressed lanes
-    err_out,  # (SL, 128)
-    meta_ref,  # (1, META_ROWS, SL, 128) parsed element metadata + coefs
-    chunk_ref,
-    l1_ref,
-    win_ref,
-    stage_a,
-    stage_b,
-    words_sem,
-    dma_a,
-    dma_b,
-    *,
-    kb: int,
-    F: int,
-    W_pad: int,
-    LB: int,
-    depth: int,
-    pb_cfg: int,
-    mb_cfg: int,
-    passes: int,
-    interpret: bool = False,
-    probe: str = "",
-):
-    """Fused SCE/CPE element decode: parse the 3-bit tag, element header,
-    per-channel predictor headers and int16 coefficients on the resident
-    bit window (decoder.go:210-265/348-460), then run the 2-pass entropy
-    walk from the computed entropy start.  Field-for-field parity with
-    ops/walk.py `_parse_elem` (same reads, same error codes, same
-    precedence); DSE/FIL/END handling stays in the XLA slot loop."""
-    SL = LB // 128
-    NB = W_pad // _BLK
-    pid = pl.program_id(0)
-    lane0 = pl.multiple_of(pid * LB, LB)
-
-    def vec(x):
-        return x.reshape(SL, 128)
-
-    bitpos = vec(bitpos_ref[...])
-    pa = vec(pact_ref[...])
-    size_bits = vec(sizebits_ref[...])
-    ns_in = vec(ns_ref[...])
-    allow_cpe = vec(allowcpe_ref[...])
-
-    NPAIR = pl.cdiv(F, 2 * _K_ROWS)
-    NR = passes * 2 * NPAIR
-
-    l1_fill, refill_window = _stream_fns(
-        words_hbm, chunk_ref, l1_ref, win_ref, words_sem, SL, LB, NB, lane0
-    )
-
-    z = jnp.zeros((SL, 128), I32)
-
-    # ---- parse prologue ----
-    bi0 = _sshr(bitpos, 8)
-    sb = _sshr(bi0, 5)
-    l1_fill(sb)
-    refill_window(bi0, sb, pa == 1)
-    base = _shl(bi0, 8)
-
-    def wtab_now():
-        ws = [win_ref[pl.ds(i * SL, SL), :] for i in range(_NWIN)]
-        return [ws, ws[1:] + [z]]
-
-    def rd(wt, p, n):
-        """n-bit read (n static, <= 32) at absolute per-lane bit position p;
-        two select trees + the zero-guarded 32-bit mix, as streambits."""
-        o = p - base
-        j = _sshr(o, 5)
-        a = _wsel(wt[0], j)
-        b = _wsel(wt[1], j)
-        return _ushr(_mix(a, b, o & 31), 32 - n)
-
-    wt = wtab_now()
-
-    pab = pa == 1
-    tag = rd(wt, bitpos, 3)
-    p0 = bitpos + 3
-
-    is_sce = pab & ((tag == 0) | (tag == 3))
-    is_cpe = pab & (tag == 1) & (allow_cpe == 1)
-    is_elem = is_sce | is_cpe
-    err = jnp.where(pab & ((tag == 2) | (tag == 5)), ERR_ELEMENT, z)
-
-    # (decoder.go:210-235 / 348-375): 4-bit instance tag skipped, 12 unused
-    # bits must be zero, then partial/bytesShifted/escape flags.
-    unused = rd(wt, p0 + 4, 12)
-    hdr4 = rd(wt, p0 + 16, 4)
-    partial = _sshr(hdr4, 3)
-    bsf = _sshr(hdr4, 1) & 3
-    escf = hdr4 & 1
-
-    err = jnp.where(is_elem & (unused != 0), ERR_HEADER, err)
-    err = jnp.where(is_elem & (bsf == 3), ERR_SHIFT, err)
-    is_elem = is_elem & (err == ERR_NONE)
-    is_sce = is_sce & is_elem
-    is_cpe = is_cpe & is_elem
-
-    p = p0 + 20
-    ns_part = rd(wt, p, 32)
-    ns_new = jnp.where(is_elem & (partial == 1), ns_part, ns_in)
-    err = jnp.where(is_elem & ((ns_new > F) | (ns_new < 0)), ERR_SAMPLES, err)
-    is_elem = is_elem & (err == ERR_NONE)
-    is_sce = is_sce & is_elem
-    is_cpe = is_cpe & is_elem
-    p = p + jnp.where(is_elem & (partial == 1), 32, 0)
-    ns_l = jnp.where(is_elem, ns_new, ns_in)
-
-    # chan_bits (decoder.go:230, 371); escape resets (:326, 388); widths
-    # outside [1, 32] hit degenerate Go shift-saturation paths -> flag for
-    # the exact scalar fallback rather than emulate.
-    cb_comp = depth - bsf * 8 + jnp.where(is_cpe, 1, 0)
-    esc_cb = jnp.where(is_cpe, z + depth, depth - bsf * 8)
-    bad_width = (escf == 0) & ((cb_comp > 32) | (cb_comp < 1))
-    bad_width = bad_width | ((escf == 1) & (esc_cb < 1))
-    err = jnp.where(is_elem & bad_width, ERR_WIDTH, err)
-    is_elem = is_elem & (err == ERR_NONE)
-    is_sce = is_sce & is_elem
-    is_cpe = is_cpe & is_elem
-
-    is_comp = is_elem & (escf == 0)
-    is_escape = is_elem & (escf == 1)
-
-    # Mix info + U-channel predictor header (read for every lane; values
-    # are masked downstream exactly as the XLA parse does).
-    mixbits = rd(wt, p, 8)
-    mixres8 = rd(wt, p + 8, 8)
-    mixres = jnp.where(mixres8 >= 128, mixres8 - 256, mixres8)
-    pc = p + 16
-
-    b1 = rd(wt, pc, 8)
-    mode_u = _sshr(b1, 4)
-    den_u = b1 & 15
-    b2 = rd(wt, pc + 8, 8)
-    pbf_u = _sshr(b2, 5)
-    num_u = b2 & 31
-
-    def coef_loop(wt, p0c, num, mask):
-        """32 predicated 16-bit reads at p0c + 16j; rows j >= num stay 0.
-        One stacked (32, SL, 128) carry (separate per-row carries are an
-        invalid Mosaic relayout)."""
-        riota = jax.lax.broadcasted_iota(I32, (32, SL, 128), 0)
-
-        def body(j, acc):
-            jv = z + j  # vectorize the trip index (scalar-vs-vector compare)
-            cj = rd(wt, p0c + 16 * jv, 16)
-            cj = jnp.where(cj >= 32768, cj - 65536, cj)  # sext16
-            cj = jnp.where(mask & (jv < num), cj, 0)
-            return jnp.where((riota - j) == 0, cj[None], acc)
-
-        return jax.lax.fori_loop(0, 32, body, jnp.zeros((32, SL, 128), I32))
-
-    # U coefficients: worst span from a fresh window start is 23 (header)
-    # + 32 (partial) + 16 (mix) + 16 (pred hdr) + 512 (coefs) + 32 (read
-    # slack) = 886 < 1024 — always inside the current window.
-    cu0 = pc + 16
-    coefs_u = coef_loop(wt, cu0, num_u, is_comp)
-    p_after_u = cu0 + 16 * num_u
-
-    # The V-channel region can extend past the window; refresh first when
-    # any parsing CPE lane is deep enough in (same machinery as the group
-    # loop; per-lane window re-select).
-    offv = p_after_u - base
-    needw = jnp.any(is_cpe & is_comp & (offv >= _PARSE_REFRESH))
-    biv = _sshr(p_after_u, 8)
-    need_l1 = needw & jnp.any(
-        is_cpe & is_comp & (biv - sb * _SB_BLOCKS > _L1_BLOCKS - 1 - _WIN_BLOCKS)
-    )
-    sb = jnp.where(need_l1, _sshr(biv, 5), sb)
-
-    @pl.when(need_l1)
-    def _():
-        l1_fill(sb)
-
-    # Every compressed lane may start the walk below _GROUP_AT and read
-    # this window (escape lanes re-anchor via the forced first refresh).
-    @pl.when(needw)
-    def _():
-        refill_window(biv, sb, is_comp)
-
-    base = jnp.where(needw, _shl(biv, 8), base)
-    wt = wtab_now()
-
-    b3 = rd(wt, p_after_u, 8)
-    mode_v = _sshr(b3, 4)
-    den_v = b3 & 15
-    b4 = rd(wt, p_after_u + 8, 8)
-    pbf_v = _sshr(b4, 5)
-    num_v = b4 & 31
-    cv0 = p_after_u + 16
-    coefs_v = coef_loop(wt, cv0, num_v, is_cpe & is_comp)
-    p_after_v = cv0 + 16 * num_v
-
-    p_pred = jnp.where(is_cpe, p_after_v, p_after_u)
-
-    # Shift region: saved cursor, then skipped (decoder.go:289-293,
-    # 453-457).  Escape raw data begins right after the element header.
-    shift_base = p_pred
-    nch_elem = 1 + jnp.where(is_cpe, 1, 0)
-    p_ent = p_pred + jnp.where(is_comp, bsf * 8 * nch_elem * ns_l, 0)
-
-    esc_base = p
-    p_esc_end = p + ns_l * esc_cb * nch_elem
-    err = jnp.where(is_escape & (p_esc_end > size_bits), ERR_OVERRUN, err)
-    is_escape = is_escape & (err == ERR_NONE)
-    is_elem = is_elem & (err == ERR_NONE)
-    is_comp = is_comp & is_elem
-
-    # ---- metadata out (written before the walk; flushed at kernel end) ----
-    meta_vals = [
-        tag, ns_l, bsf, is_escape.astype(I32), is_comp.astype(I32),
-        mixbits, mixres, mode_u, den_u, num_u, mode_v, den_v, num_v,
-        shift_base, esc_base, p_esc_end,
-        is_sce.astype(I32), is_cpe.astype(I32),
-    ]
-    meta_ref[...] = jnp.concatenate(
-        [jnp.stack(meta_vals), coefs_u, coefs_v], axis=0
-    ).reshape(meta_ref.shape)
-
-    # ---- entropy walk init (the XLA glue's run_uv, now in-register) ----
-    act_u = is_comp.astype(I32)
-    pb_u = _sshr(pb_cfg * pbf_u, 2)
-    pb_v = _sshr(pb_cfg * pbf_v, 2)
-    mb0 = z + mb_cfg
-    act2v = (is_cpe & (is_comp | is_escape)).astype(I32) * (ns_l > 0).astype(I32)
-    raw = is_escape.astype(I32)
-    rstep = nch_elem * esc_cb  # per-row stride: SCE cb, CPE 2cb (interleaved)
-    rawcb = jnp.maximum(esc_cb, 1)
-    raw_vpos = esc_base + esc_cb
-    act_w = (act_u | raw) * (ns_l > 0).astype(I32)
-
-    # Walk-start window state: keep the current base and let the group
-    # loop's refresh machinery normalize (off >= _GROUP_AT triggers the
-    # per-lane re-select; the shift-region skip can jump arbitrarily far
-    # and the need_l1 path handles any distance).  Escape lanes read from
-    # esc_base, which can sit BELOW their current base: their "V header"
-    # parse reads were garbage escape data, and the cross-lane V refresh
-    # re-anchored base at that garbage p_after_u.  Encode their cursor
-    # with off >= _GROUP_AT (same trick as the raw pass-2 rewind) so the
-    # first group refreshes before any read.
-    off_e = (esc_base & 255) + 512
-    off0 = jnp.where(raw == 1, off_e, p_ent - base)
-    base0 = jnp.where(raw == 1, esc_base - off_e, base)
-    st0 = (act_w, off0, err, z, mb0, z, z, base0, sb, pb_u)
-
-    # Slots with no walk lane at all (END/DSE/FIL-only) skip the walk loop
-    # entirely, and SCE-only batches (or mono) never activate pass 2: skip
-    # its all-idle groups (their staged zeros are never read — inactive
-    # lanes' rows are select-merged away in XLA).
-    any_w = jnp.any(act_w == 1)
-    if passes == 2:
-        trips = jnp.where(
-            any_w, jnp.where(jnp.any(act2v == 1), NR // 2, NR // 4), 0
-        )
-    else:
-        trips = jnp.where(any_w, NR // 2, 0)
-
-    act_f, off, err, count, mean, zmode, zrem, base, sb, pbl = _walk_groups(
-        st0,
-        l1_fill=l1_fill,
-        refill_window=refill_window,
-        win_ref=win_ref,
-        rows_ref=rows_ref,
-        stage_a=stage_a,
-        stage_b=stage_b,
-        dma_a=dma_a,
-        dma_b=dma_b,
-        pid=pid,
-        SL=SL,
-        kb=kb,
-        NPAIR=NPAIR,
-        NR=NR,
-        trips=trips,
-        passes=passes,
-        act2v=act2v,
-        pb2=pb_v,
-        mb0=mb0,
-        max_size=cb_comp,
-        ns=ns_l,
-        size_bits=size_bits,
-        interpret=interpret,
-        probe=probe,
-        raw=raw,
-        rstep=rstep,
-        rawcb=rawcb,
-        raw_vpos=raw_vpos,
-    )
-
-    bitpos_out[...] = jnp.where(act_u == 1, base + off, bitpos).reshape(bitpos_ref.shape)
-    err_out[...] = err.reshape(bitpos_ref.shape)
-
-
-def _pad_words(words_t):
-    """Round the word axis up to a whole L1 chunk (zero rows = the
-    reference's zero pad)."""
-    W_pad, B = words_t.shape
-    if W_pad % _CHUNK_WORDS:
-        pad_rows = _CHUNK_WORDS - W_pad % _CHUNK_WORDS
-        words_t = jnp.concatenate(
-            [words_t, jnp.zeros((pad_rows, B), words_t.dtype)], axis=0
-        )
-        W_pad += pad_rows
-    return words_t, W_pad
-
-
-@functools.partial(
-    jax.jit, static_argnames=("kb", "F", "LB", "passes", "interpret", "probe")
-)
-def dense_entropy_pallas(
-    words_t, bitpos, act, pb_local, max_size, ns, size_bits, mb,
-    act2=None, pb2=None, *, kb, F, LB=512, passes=1, interpret=False, probe=""
-):
-    """Run the dense-emission kernel over a lane-blocked grid.
-
-    words_t: (W_pad, B) word-major packed streams (transposed once per batch).
-    Returns (rows (passes*F_pad, B) int32, bitpos', err).  Rows t >= ns(lane)
-    are 0.  With passes=2 the kernel continues into a second channel whose
-    residual block directly follows the first (CPE U then V): lanes in
-    ``act2`` reactivate at their pass-1 end cursors with fresh entropy state
-    and ``pb2`` tuning; their rows land at F_pad + t.  One invocation, one
-    L1/window pipeline — the V stream starts exactly where U ended, so the
-    window is already resident.
+    words: (B, W) big-endian-order stream words, B a multiple of LANES;
+    res: (F, C, B) residual planes, updated in place at [sample, chan[b], b].
+    Returns (bitpos, err, res), as ops/walk.py's ``_entropy_channel``.
     """
-    words_t, W_pad = _pad_words(words_t)
-    B = words_t.shape[1]
-    assert B % LB == 0, (B, LB)
-    SL = LB // 128
-    # Rounded to a PAIR of groups: the group loop runs two at a time
-    # (double-buffered staging).
-    F_pad = ((F + 2 * _K_ROWS - 1) // (2 * _K_ROWS)) * (2 * _K_ROWS)
-    nblocks = B // LB
-
-    if act2 is None:
-        act2 = jnp.zeros_like(act)
-    if pb2 is None:
-        pb2 = jnp.zeros_like(pb_local)
-    kern = functools.partial(
-        _dense_kernel, kb=kb, F=F, W_pad=W_pad, LB=LB, passes=passes,
-        interpret=interpret, probe=probe
+    B, W = words.shape
+    assert B % LANES == 0, B
+    F = res.shape[0]
+    kernel = functools.partial(
+        _kernel, W=W, F=F, kb=kb, mb=mb, lanes_per_program=LANES
     )
-
-    # Lane-vector blocks: 3-D (nblocks, SL, 128) with the grid on dim 0 so
-    # the trailing dims equal the array dims (Mosaic's block constraint).
-    lane_spec = pl.BlockSpec((1, SL, 128), lambda i: (i, 0, 0), memory_space=pltpu.VMEM)
-
-    def lanes(x):
-        return x.reshape(nblocks, SL, 128)
-
-    rows, bitpos2, err = pl.pallas_call(
-        kern,
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            lane_spec,
-            lane_spec,
-            lane_spec,
-            lane_spec,
-            lane_spec,
-            lane_spec,
-            lane_spec,
-            lane_spec,
-            lane_spec,
-        ],
-        out_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            lane_spec,
-            lane_spec,
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((passes * F_pad, nblocks, SL, 128), jnp.int32),
-            jax.ShapeDtypeStruct((nblocks, SL, 128), jnp.int32),
-            jax.ShapeDtypeStruct((nblocks, SL, 128), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((_CHUNK_WORDS, LB), jnp.int32),
-            pltpu.VMEM((_L1_BLOCKS * _BLK, LB), jnp.int32),
-            pltpu.VMEM((_NWIN * SL, 128), jnp.int32),
-            pltpu.VMEM((_K_ROWS, SL, 128), jnp.int32),
-            pltpu.VMEM((_K_ROWS, SL, 128), jnp.int32),
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-        ],
+    vec = jax.ShapeDtypeStruct((B,), I32)
+    res, bitpos, err = pl.pallas_call(
+        kernel,
+        grid=(B // LANES,),
+        out_shape=(jax.ShapeDtypeStruct(res.shape, I32), vec, vec),
+        input_output_aliases={9: 0},
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
+        name="alac_entropy_walk",
     )(
-        words_t,
-        lanes(bitpos),
-        lanes(act.astype(jnp.int32)),
-        lanes(pb_local),
-        lanes(max_size),
-        lanes(ns),
-        lanes(size_bits),
-        lanes(mb),
-        lanes(act2.astype(jnp.int32)),
-        lanes(pb2),
+        words, size_bits, bitpos, err, active.astype(I32), chan, pb_local,
+        max_size, ns, res,
     )
-    # (passes*F_pad, NB, SL, 128) -> (passes*F_pad, B): minor-dim collapse,
-    # columns already in block-major lane order (lane = nb*LB + s*128 + l).
-    return rows.reshape(passes * F_pad, B), bitpos2.reshape(B), err.reshape(B)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "kb", "F", "LB", "depth", "pb_cfg", "mb_cfg", "passes", "interpret",
-        "probe", "raw_rows",
-    ),
-)
-def dense_element_pallas(
-    words_t, bitpos, pact, size_bits, ns_in, allow_cpe,
-    *, kb, F, LB, depth, pb_cfg, mb_cfg, passes, interpret=False, probe="",
-    raw_rows=False,
-):
-    """Fused element decode over a lane-blocked grid: in-kernel tag +
-    header + coefficient parse, then the 2-pass entropy walk.
-
-    Returns (rows (passes*F_pad, B), bitpos' (B), err (B), meta
-    (META_ROWS, B)).  `bitpos'` is the post-entropy cursor for compressed
-    lanes (input bitpos otherwise); meta rows are the M_* constants, with
-    coefficients at rows M_COEFS_U.. and M_COEFS_V.. (already sign-extended
-    int16 values).
-
-    ``raw_rows=True`` returns rows in the kernel's native HBM layout
-    (passes*F_pad, NB, SL, 128) so a downstream kernel (the LPC FIR) can DMA
-    chunks straight out of it — the (passes*F_pad, B) reshape is a real
-    retiling copy at production shapes (~0.1 ms at B=2048 F=4096).
-    """
-    words_t, W_pad = _pad_words(words_t)
-    B = words_t.shape[1]
-    assert B % LB == 0, (B, LB)
-    SL = LB // 128
-    F_pad = ((F + 2 * _K_ROWS - 1) // (2 * _K_ROWS)) * (2 * _K_ROWS)
-    nblocks = B // LB
-
-    kern = functools.partial(
-        _element_kernel, kb=kb, F=F, W_pad=W_pad, LB=LB, depth=depth,
-        pb_cfg=pb_cfg, mb_cfg=mb_cfg, passes=passes, interpret=interpret,
-        probe=probe,
-    )
-
-    lane_spec = pl.BlockSpec((1, SL, 128), lambda i: (i, 0, 0), memory_space=pltpu.VMEM)
-    meta_spec = pl.BlockSpec(
-        (1, META_ROWS, SL, 128), lambda i: (i, 0, 0, 0), memory_space=pltpu.VMEM
-    )
-
-    def lanes(x):
-        return x.reshape(nblocks, SL, 128)
-
-    rows, bitpos2, err, meta = pl.pallas_call(
-        kern,
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            lane_spec,
-            lane_spec,
-            lane_spec,
-            lane_spec,
-            lane_spec,
-        ],
-        out_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            lane_spec,
-            lane_spec,
-            meta_spec,
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((passes * F_pad, nblocks, SL, 128), jnp.int32),
-            jax.ShapeDtypeStruct((nblocks, SL, 128), jnp.int32),
-            jax.ShapeDtypeStruct((nblocks, SL, 128), jnp.int32),
-            jax.ShapeDtypeStruct((nblocks, META_ROWS, SL, 128), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((_CHUNK_WORDS, LB), jnp.int32),
-            pltpu.VMEM((_L1_BLOCKS * _BLK, LB), jnp.int32),
-            pltpu.VMEM((_NWIN * SL, 128), jnp.int32),
-            pltpu.VMEM((_K_ROWS, SL, 128), jnp.int32),
-            pltpu.VMEM((_K_ROWS, SL, 128), jnp.int32),
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-        ],
-        interpret=interpret,
-    )(
-        words_t,
-        lanes(bitpos),
-        lanes(pact.astype(jnp.int32)),
-        lanes(size_bits),
-        lanes(ns_in),
-        lanes(allow_cpe.astype(jnp.int32)),
-    )
-    return (
-        rows if raw_rows else rows.reshape(passes * F_pad, B),
-        bitpos2.reshape(B),
-        err.reshape(B),
-        jnp.moveaxis(meta, 1, 0).reshape(META_ROWS, B),
-    )
-
-
-def _raw_reader_kernel(
-    words_hbm,  # (W_pad, B) int32 HBM (ANY)
-    base_ref,  # (1, SL, 128) absolute start bit position per lane
-    step_ref,  # (1, SL, 128) bits per sample
-    width_ref,  # (1, SL, 128) value width (1..32)
-    act_ref,  # (1, SL, 128) lane active mask
-    n_ref,  # (1, SL, 128) samples per lane
-    rows_ref,  # (F_pad, NB_blocks, SL, 128) OUTPUT in HBM (ANY)
-    chunk_ref,
-    l1_ref,
-    win_ref,
-    stage_a,
-    stage_b,
-    words_sem,
-    dma_a,
-    dma_b,
-    *,
-    F: int,
-    W_pad: int,
-    LB: int,
-    signed: bool,
-    interpret: bool,
-):
-    """Fixed-stride raw bit-field reader: rows[t, lane] = the width-bit value
-    at base + t*step (sign-extended when ``signed``).  Reuses the walk group
-    loop with every active lane in raw mode — the Golomb machinery runs
-    masked-off in lockstep (dec == 0 everywhere), which costs nothing extra
-    and keeps ONE group-loop implementation to validate.
-
-    Replaces XLA vread gathers for the shift-buffer region
-    (decoder.go:314-321, 492-502 — consecutive values for mono, U/V
-    interleaved for pairs): a fully-shifted 24/32-bit batch gathers
-    F*C*B*2 words (~1 s at production shapes) where this reader streams.
-    """
-    SL = LB // 128
-    NB = W_pad // _BLK
-    pid = pl.program_id(0)
-    lane0 = pl.multiple_of(pid * LB, LB)
-
-    def vec(x):
-        return x.reshape(SL, 128)
-
-    base_abs = vec(base_ref[...])
-    step = vec(step_ref[...])
-    width = vec(width_ref[...])
-    act = vec(act_ref[...])
-    n = vec(n_ref[...])
-    z = jnp.zeros((SL, 128), I32)
-
-    l1_fill, refill_window = _stream_fns(
-        words_hbm, chunk_ref, l1_ref, win_ref, words_sem, SL, LB, NB, lane0
-    )
-    bi0 = _sshr(base_abs, 8)
-    sb = _sshr(bi0, 5)
-    l1_fill(sb)
-    refill_window(bi0, sb, act == 1)
-
-    act = act * (n > 0).astype(I32)
-    NPAIR = pl.cdiv(F, 2 * _K_ROWS)
-    NR = 2 * NPAIR
-    trips = jnp.where(jnp.any(act == 1), NR // 2, 0)
-    # err/count/mean/zmode/zrem idle; pbl/max_size/size_bits only feed the
-    # masked-off Golomb lanes (dec == 0: raw covers every active lane).
-    st0 = (act, base_abs - _shl(bi0, 8), z, z, z, z, z, _shl(bi0, 8), sb, z)
-    _walk_groups(
-        st0,
-        l1_fill=l1_fill,
-        refill_window=refill_window,
-        win_ref=win_ref,
-        rows_ref=rows_ref,
-        stage_a=stage_a,
-        stage_b=stage_b,
-        dma_a=dma_a,
-        dma_b=dma_b,
-        pid=pid,
-        SL=SL,
-        kb=1,
-        NPAIR=NPAIR,
-        NR=NR,
-        trips=trips,
-        passes=1,
-        act2v=z,
-        pb2=z,
-        mb0=z,
-        max_size=z + 1,
-        ns=n,
-        size_bits=z + 0x7FFFFFF0,
-        interpret=interpret,
-        probe="",
-        raw=jnp.ones((SL, 128), I32),
-        rstep=step,
-        rawcb=jnp.maximum(width, 1),
-        raw_vpos=z,
-        raw_signed=signed,
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("F", "LB", "signed", "interpret"))
-def raw_read_pallas(words_t, base, step, width, act, n, *, F, LB=1024, signed=False, interpret=False):
-    """(F_pad, B) raw bit fields: out[t, b] = width[b] bits at base[b] +
-    t*step[b] for t < n[b] on active lanes; 0 elsewhere."""
-    words_t, W_pad = _pad_words(words_t)
-    B = words_t.shape[1]
-    assert B % LB == 0, (B, LB)
-    SL = LB // 128
-    F_pad = ((F + 2 * _K_ROWS - 1) // (2 * _K_ROWS)) * (2 * _K_ROWS)
-    nblocks = B // LB
-
-    kern = functools.partial(
-        _raw_reader_kernel, F=F, W_pad=W_pad, LB=LB, signed=signed,
-        interpret=interpret,
-    )
-    lane_spec = pl.BlockSpec((1, SL, 128), lambda i: (i, 0, 0), memory_space=pltpu.VMEM)
-
-    def lanes(x):
-        return x.reshape(nblocks, SL, 128)
-
-    rows = pl.pallas_call(
-        kern,
-        grid=(nblocks,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] + [lane_spec] * 5,
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        out_shape=jax.ShapeDtypeStruct((F_pad, nblocks, SL, 128), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((_CHUNK_WORDS, LB), jnp.int32),
-            pltpu.VMEM((_L1_BLOCKS * _BLK, LB), jnp.int32),
-            pltpu.VMEM((_NWIN * SL, 128), jnp.int32),
-            pltpu.VMEM((_K_ROWS, SL, 128), jnp.int32),
-            pltpu.VMEM((_K_ROWS, SL, 128), jnp.int32),
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-        ],
-        interpret=interpret,
-    )(
-        words_t,
-        lanes(base.astype(jnp.int32)),
-        lanes(step.astype(jnp.int32)),
-        lanes(width.astype(jnp.int32)),
-        lanes(act.astype(jnp.int32)),
-        lanes(n.astype(jnp.int32)),
-    )
-    return rows.reshape(F_pad, B)
+    return bitpos, err, res

@@ -5,7 +5,7 @@ state reset per packet — reference decode.go:130-187), so multi-chip scaling
 is pure data parallelism: shard the batch axis over the mesh and run the
 single-chip pipeline per shard under jax.shard_map.  No collectives are
 required for correctness (SURVEY §2.4); the only cross-device traffic is the
-optional output gather, which rides ICI via the output sharding.
+optional output gather, which rides NVLink via the output sharding.
 """
 
 from __future__ import annotations
@@ -14,10 +14,8 @@ from functools import partial
 from typing import Sequence
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
 
 from ..config import PacketConfig
 from ..ops.batch import JaxBatchDecoder, _bucket, _decode_batch
@@ -36,51 +34,33 @@ def make_packet_mesh(devices: Sequence[jax.Device] | None = None) -> Mesh:
 class ShardedBatchDecoder(JaxBatchDecoder):
     """Batch decoding sharded over a device mesh (packet-axis DP)."""
 
-    def __init__(self, config: PacketConfig, mesh: Mesh | None = None):
-        super().__init__(config)
+    def __init__(self, config: PacketConfig, mesh: Mesh | None = None, impl: str | None = None):
+        super().__init__(config, impl=impl)
         self.mesh = mesh if mesh is not None else make_packet_mesh()
         self._n = self.mesh.devices.size
+        cfg = self.config
+        single = partial(
+            _decode_batch,
+            frame_length=cfg.frame_length,
+            num_channels=cfg.num_channels,
+            depth=cfg.bit_depth,
+            pb=cfg.pb,
+            mb=cfg.mb,
+            kb=cfg.kb,
+            impl=self.impl,
+        )
+        sharded = jax.shard_map(
+            single,
+            mesh=self.mesh,
+            in_specs=(P(PACKET_AXIS, None), P(PACKET_AXIS)),
+            out_specs=(P(PACKET_AXIS, None), P(PACKET_AXIS), P(PACKET_AXIS)),
+            # Loop carries are seeded from replicated literals; skip the
+            # varying-manual-axes check (everything here is lane-local).
+            check_vma=False,
+        )
+        self._fn = jax.jit(sharded)
 
-        self._fns = {}
-
-    def _fn(self, taps: int):
-        """Sharded executable per taps variant (9 steady-state / 32 retry),
-        built lazily and cached."""
-        if taps not in self._fns:
-            from ..ops import lpc as _lpc_mod
-            from ..ops import walk as _walk_mod
-
-            cfg = self.config
-            single = partial(
-                _decode_batch,
-                frame_length=cfg.frame_length,
-                num_channels=cfg.num_channels,
-                depth=cfg.bit_depth,
-                pb=cfg.pb,
-                mb=cfg.mb,
-                kb=cfg.kb,
-                # Impl selections bind at first use: build a fresh decoder
-                # after flipping the module globals (they are static jit args).
-                walk_impl=_walk_mod._IMPL,
-                lpc_impl=_lpc_mod._IMPL,
-                taps=taps,
-            )
-            sharded = jax.shard_map(
-                single,
-                mesh=self.mesh,
-                in_specs=(P(PACKET_AXIS, None), P(PACKET_AXIS)),
-                out_specs=(
-                    P(PACKET_AXIS, None), P(PACKET_AXIS), P(PACKET_AXIS),
-                    P(PACKET_AXIS),
-                ),
-                # Loop carries are seeded from replicated literals; skip the
-                # varying-manual-axes check (everything here is lane-local).
-                check_vma=False,
-            )
-            self._fns[taps] = jax.jit(sharded)
-        return self._fns[taps]
-
-    def decode_async(self, packets: Sequence[bytes], taps: int = 9):
+    def decode_async(self, packets: Sequence[bytes]):
         words_np, sizes_np = pack_packets(list(packets))
         B = len(packets)
         n = self._n
@@ -92,8 +72,7 @@ class ShardedBatchDecoder(JaxBatchDecoder):
         sizes = np.zeros(Bb, dtype=np.int32)
         sizes[:B] = sizes_np
 
-        in2 = NamedSharding(self.mesh, P(PACKET_AXIS, None))
-        in1 = NamedSharding(self.mesh, P(PACKET_AXIS))
-        words_d = jax.device_put(jnp.asarray(words), in2)
-        sizes_d = jax.device_put(jnp.asarray(sizes), in1)
-        return self._fn(taps)(words_d, sizes_d)
+        # Each shard goes straight from host memory to its own device.
+        words_d = jax.device_put(words, NamedSharding(self.mesh, P(PACKET_AXIS, None)))
+        sizes_d = jax.device_put(sizes, NamedSharding(self.mesh, P(PACKET_AXIS)))
+        return self._fn(words_d, sizes_d)

@@ -1,5 +1,5 @@
 """Device-side encoder: byte-identical to the host encoder, and a full
-TPU encode -> TPU decode loop."""
+device encode -> device decode loop."""
 
 import numpy as np
 import pytest
@@ -56,7 +56,8 @@ def test_device_encoder_batch_and_partials():
 
 
 def test_full_device_loop():
-    """PCM -> TPU encode -> TPU decode -> identical PCM, host only moving bytes."""
+    """PCM -> device encode -> device decode -> identical PCM, host only
+    moving bytes."""
     cfg = make_config(depth=16, channels=2, frame_length=F)
     spec = spec_for(4, mix_res=1)
     pcms = [music_pcm(F, 2, 16, seed=20 + i, tonality=0.9) for i in range(8)]
@@ -160,3 +161,23 @@ def test_device_forced_escape():
     dev = encode_packets_device(cfg, spec, [pcm])[0]
     assert dev == encode_packet(cfg, spec, pcm)
     assert oracle(cfg, dev)[0] == expected_pcm_bytes(pcm, 24)
+
+
+@pytest.mark.parametrize(
+    "pb,mb,kb,tonality",
+    [(40, 10, 14, 0.98), (10, 40, 10, 0.5), (40, 10, 1, 0.98), (40, 10, 14, 0.0)],
+    ids=["apple", "alt-tuning", "kb1", "noise"],
+)
+def test_device_entropy_tunings_match_host(pb, mb, kb, tonality):
+    """The lockstep device entropy encoder across tunings and content
+    regimes — small residuals, the kb=1 corner (k == 1 emits a 0-width
+    suffix), escape-heavy noise — with a partial frame and a silent run
+    (zero-run codes, golomb.go:223-246), byte-identical to the host
+    encoder."""
+    cfg = make_config(depth=16, channels=2, frame_length=F, pb=pb, mb=mb, kb=kb)
+    pcm = music_pcm(3 * F - 29, 2, 16, seed=kb + mb, tonality=tonality)
+    pcm[F : F + 100] = 0
+    spec = spec_for(4, mix_res=1)
+    pcms = [pcm[i : i + F] for i in range(0, len(pcm), F)]
+    dev = encode_packets_device(cfg, spec, pcms)
+    assert dev == [encode_packet(cfg, spec, p) for p in pcms]

@@ -1,18 +1,15 @@
-"""Fused single-slot layout: walk rows consumed in place by the LPC kernel.
+"""Full-decode round trips through JaxBatchDecoder on the GPU kernels.
 
-For C <= 2 batches in whole lane blocks (B % 128 == 0 — every production
-bucket) the element kernel's raw rows buffer is handed straight to the LPC
-FIR kernel (ops/walk.fused_rows_layout): no dispatch cond, no (F, C, B)
-merge select, no residual relayout.  These tests pin that path specifically
-— the broader suites mostly use small odd batch sizes, which take the slot
-loop + merge path.
+Both the entropy walk (ops/walk_kernel.py) and the LPC kernel
+(ops/lpc_kernel.py) run in the Pallas interpreter here, at a whole batch of
+B lanes, against the scalar oracle: depths x channels, encoder variants,
+partial frames, noise, multi-slot layouts, corrupt lanes and wide FIR
+orders.  The same kernels compiled for the card are checked by
+``chip_smoke.py``.
 
-Parity: decoder.go:210-265/348-460 (one SCE or CPE per packet is the layout
-every known encoder emits for mono/stereo); multi-element layouts fall back
-to the exact host decode via ERR_SLOTS (decode path behavior unchanged).
+Parity: decoder.go:210-265/348-460, golomb.go:112-253, predictor.go:99-682.
 """
 
-import numpy as np
 import pytest
 
 from conftest import make_config, music_pcm
@@ -29,29 +26,12 @@ from saprobe_alac_tpu.encoder.encode import (
 from saprobe_alac_tpu.ops.batch import JaxBatchDecoder
 
 F = 256
-B = 128  # one whole lane block -> fused path
-
-
-@pytest.fixture(autouse=True)
-def interpret_kernels():
-    """Force both Pallas kernels (interpreter mode) for every test here."""
-    import saprobe_alac_tpu.ops.lpc as lpc_mod
-    import saprobe_alac_tpu.ops.walk as walk_mod
-
-    old = walk_mod._IMPL, lpc_mod._IMPL
-    walk_mod._IMPL = "pallas_interpret"
-    lpc_mod._IMPL = "pallas_interpret"
-    yield
-    walk_mod._IMPL, lpc_mod._IMPL = old
+B = 128  # several programs of each kernel (walk_kernel.LANES, lpc_kernel.LANES)
 
 
 def fused_decoder(depth, channels):
-    import saprobe_alac_tpu.ops.lpc as lpc_mod
-    import saprobe_alac_tpu.ops.walk as walk_mod
-    from saprobe_alac_tpu.ops.walk import fused_rows_layout
-
-    assert fused_rows_layout(walk_mod._IMPL, lpc_mod._IMPL, channels, B)
-    return JaxBatchDecoder(make_config(depth=depth, channels=channels, frame_length=F))
+    cfg = make_config(depth=depth, channels=channels, frame_length=F)
+    return JaxBatchDecoder(cfg, impl="interpret")
 
 
 def roundtrip(depth, channels, spec, pcm=None, seed=None):
@@ -97,9 +77,9 @@ def test_fused_noise():
 
 
 def test_fused_multislot_lane_falls_back():
-    """A FIL-prefixed stereo packet needs two element slots; on the fused
-    single-slot layout it gets ERR_SLOTS and the exact host fallback decodes
-    it — output stays bit-exact."""
+    """A FIL-prefixed stereo packet needs two element slots: the slot loop
+    skips the FIL on device and the kernel walks the CPE in the second slot
+    — output stays bit-exact."""
     cfg = make_config(depth=16, channels=2, frame_length=F)
     pcm = music_pcm(F, 2, 16, seed=9)
     spec = EncoderSpec()
@@ -136,31 +116,22 @@ def test_fused_underpopulated_sce_lane():
 
 
 def test_wide_order_retries_at_32_taps():
-    """FIR orders 9..30 flip the per-packet `wide` flag and finish_async
-    re-dispatches through the 32-tap executable — output bit-exact, steady
-    state stays on the 9-tap executable (no on-device taps cond)."""
-    import numpy as np
-
+    """FIR orders above 8 beside order-8 lanes: programs of the LPC kernel
+    holding both orders, and programs of order-8 lanes only, stay
+    bit-exact."""
     cfg = make_config(depth=16, channels=2, frame_length=F)
-    spec = EncoderSpec(channel=ChannelSpec(order=12))
-    pcm = music_pcm(2 * F, 2, 16, seed=21)
-    pkts = encode_packets(cfg, spec, pcm)
-    want = [oracle(cfg, p)[0] for p in pkts]
-    dec = fused_decoder(16, 2)
-    batch = [pkts[i % len(pkts)] for i in range(B)]
-    handle = dec.decode_async(batch)
-    wide = np.asarray(handle[3])
-    assert wide[: len(batch)].all(), "order-12 lanes must flag wide"
-    got = dec.finish_async(handle, batch)
-    assert all(g == want[i % len(want)] for i, g in enumerate(got))
-
-    # Steady state: order <= 8 batches never flag.
-    pkts8 = encode_packets(cfg, EncoderSpec(channel=ChannelSpec(order=8)),
-                           music_pcm(F, 2, 16, seed=22))
-    h8 = dec.decode_async([pkts8[0]] * B)
-    assert not np.asarray(h8[3]).any()
-    want8 = oracle(cfg, pkts8[0])[0]
-    assert all(g == want8 for g in dec.finish_async(h8, [pkts8[0]] * B))
+    pk12 = encode_packets(cfg, EncoderSpec(channel=ChannelSpec(order=12)),
+                          music_pcm(2 * F, 2, 16, seed=21))
+    pk8 = encode_packets(cfg, EncoderSpec(channel=ChannelSpec(order=8)),
+                         music_pcm(2 * F, 2, 16, seed=22))
+    # Lanes are channel-major (lane = c*B + b) and a program owns LANES
+    # consecutive packets of one channel: the first half of the batch
+    # alternates order 12 and order 8 inside every program, the second half
+    # is order 8 only.
+    mixed = [(pk12, pk8)[i % 2][i // 2 % 2] for i in range(B // 2)]
+    batch = mixed + [pk8[i % 2] for i in range(B // 2)]
+    want = [oracle(cfg, p)[0] for p in batch]
+    assert fused_decoder(16, 2).decode_packets(batch) == want
 
 
 def test_fused_corrupt_lane_falls_back():

@@ -91,7 +91,7 @@ def test_fuzz_mutated_packets_jax():
         packets.append(bytes(pkt))
 
     dec = JaxBatchDecoder(cfg)
-    packed, err, ns, _wide = (np.asarray(x) for x in dec.decode_async(packets))
+    packed, err, ns = (np.asarray(x) for x in dec.decode_async(packets))
 
     wrong = []
     for i, pkt in enumerate(packets):
@@ -143,7 +143,7 @@ def test_fuzz_mutated_hires_jax():
             pkt[pos] ^= 1 << int(rng.integers(0, 8))
         packets.append(bytes(pkt))
     dec = JaxBatchDecoder(cfg)
-    packed, err, ns, _wide = (np.asarray(x) for x in dec.decode_async(packets))
+    packed, err, ns = (np.asarray(x) for x in dec.decode_async(packets))
     wrong = []
     for i, pkt in enumerate(packets):
         want = oracle_outcome(cfg, pkt)

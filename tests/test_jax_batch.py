@@ -1,4 +1,4 @@
-"""Differential conformance: JAX/TPU batch pipeline vs the scalar oracle.
+"""Differential conformance: JAX device batch pipeline vs the scalar oracle.
 
 Each distinct (depth, channels, frame) compiles once (~15s on CPU), so the
 suite reuses a few configs and varies encoder specs within them.  The full

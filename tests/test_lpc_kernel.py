@@ -1,9 +1,9 @@
-"""Differential tests for the transposed Pallas LPC kernel (interpret mode).
+"""Differential tests for the GPU LPC kernel (ops/lpc_kernel.py).
 
-Forces SAPROBE_LPC_IMPL=pallas_interpret so lpc_batch routes the FIR scan
-through ops/lpc_kernel.py's interpreter driver on CPU, then round-trips
-real packets against the scalar oracle across orders, modes, and depths.
-Real-hardware bit-exactness is additionally gated by bench.py.
+Runs the kernel in the Pallas interpreter on CPU (``impl="interpret"``),
+round-tripping real packets against the scalar oracle across orders (1 to
+30), modes and depths.  The kernel compiled for
+the card is checked by ``chip_smoke.py``.
 
 Parity: predictor.go:99-682.
 """
@@ -19,19 +19,15 @@ from saprobe_alac_tpu.encoder.encode import ChannelSpec
 
 @pytest.fixture(scope="module")
 def lpc_interpret():
-    import saprobe_alac_tpu.ops.lpc as lpc
-
-    old = lpc._IMPL
-    lpc._IMPL = "pallas_interpret"
-    yield
-    lpc._IMPL = old
+    """The decoder path for this module: both kernels, interpreted."""
+    return "interpret"
 
 
 def _roundtrip(cfg, pcm, spec=None):
     from saprobe_alac_tpu.ops.batch import JaxBatchDecoder
 
     pkts = encode_packets(cfg, spec or EncoderSpec(), pcm)
-    got = JaxBatchDecoder(cfg).decode_packets(pkts)
+    got = JaxBatchDecoder(cfg, impl="interpret").decode_packets(pkts)
     want = [oracle(cfg, p)[0] for p in pkts]
     assert got == want
 
@@ -67,11 +63,10 @@ def test_lpc_kernel_24bit_partial(lpc_interpret):
 
 
 def test_lpc_impl_flip_retraces_same_shape():
-    """Regression (advisor round 2): same retrace guarantee for lpc._IMPL —
-    see test_walk_kernel.test_impl_flip_retraces_same_shape."""
+    """Same retrace guarantee for the LPC kernel — see
+    test_walk_kernel.test_impl_flip_retraces_same_shape."""
     import jax
 
-    import saprobe_alac_tpu.ops.lpc as lpc
     import saprobe_alac_tpu.ops.lpc_kernel as lk
     from saprobe_alac_tpu.ops.batch import JaxBatchDecoder
 
@@ -80,7 +75,6 @@ def test_lpc_impl_flip_retraces_same_shape():
     pkts = encode_packets(cfg, spec, music_pcm(128 * 2, 2, 16, seed=12))
 
     jax.clear_caches()
-    old = lpc._IMPL
     fired = []
     orig = lk.lpc_fir_pallas
 
@@ -89,13 +83,10 @@ def test_lpc_impl_flip_retraces_same_shape():
         return orig(*a, **k)
 
     try:
-        lpc._IMPL = "xla"
-        want = JaxBatchDecoder(cfg).decode_packets(pkts)
+        want = JaxBatchDecoder(cfg, impl="xla").decode_packets(pkts)
         lk.lpc_fir_pallas = spy
-        lpc._IMPL = "pallas_interpret"
-        got = JaxBatchDecoder(cfg).decode_packets(pkts)
+        got = JaxBatchDecoder(cfg, impl="interpret").decode_packets(pkts)
     finally:
-        lpc._IMPL = old
         lk.lpc_fir_pallas = orig
-    assert fired, "kernel was not invoked after flipping _IMPL (stale jit cache)"
+    assert fired, "kernel was not invoked for the kernel impl (stale jit cache)"
     assert got == want

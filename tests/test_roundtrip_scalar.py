@@ -3,7 +3,7 @@
 Mirrors the reference's conformance strategy (tests/conformance_test.go:568-628):
 sweep bit depth x sample rate x channels x encoder modes, verify bit-for-bit
 PCM.  With no external encoders in this environment, the in-repo encoder plays
-the fixture-generator role; the scalar oracle is the reference decoder the TPU
+the fixture-generator role; the scalar oracle is the reference decoder the device
 path is later diffed against.
 """
 

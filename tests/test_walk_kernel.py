@@ -1,10 +1,11 @@
-"""Differential tests for the Pallas dense-emission entropy kernel.
+"""Differential tests for the GPU entropy-walk kernel (ops/walk_kernel.py).
 
-Runs the kernel in interpreter mode on CPU (SAPROBE_WALK_IMPL=pallas_interpret)
-against the scalar oracle, covering the regimes that stress its schedule:
-zero-runs (dense zero draining), escapes (worst-case window budget), partial
-frames, multichannel layouts, and corrupt-packet error lanes.  Real-hardware
-bit-exactness is additionally gated by bench.py's correctness check.
+Runs the kernel in the Pallas interpreter on CPU (``impl="interpret"``)
+against the scalar oracle, covering the regimes that stress it: zero-runs,
+escape codewords (the widest per-step bit budget), partial frames,
+multichannel layouts, escape and shifted elements beside Golomb lanes, and
+corrupt-packet error lanes.  The kernel compiled for the card is checked by
+``chip_smoke.py``.
 
 Parity: golomb.go:112-253, bitbuffer.go:28-32.
 """
@@ -19,14 +20,9 @@ from saprobe_alac_tpu.encoder import EncoderSpec, encode_packets
 
 
 @pytest.fixture(scope="module")
-def dense_interpret(monkeypatch_module=None):
-    """Force the dense kernel (interpreter mode) for this module."""
-    import saprobe_alac_tpu.ops.walk as walk
-
-    old = walk._IMPL
-    walk._IMPL = "pallas_interpret"
-    yield
-    walk._IMPL = old
+def dense_interpret():
+    """The decoder path for this module: both kernels, interpreted."""
+    return "interpret"
 
 
 def _roundtrip(cfg, pcm, corrupt=None):
@@ -36,7 +32,7 @@ def _roundtrip(cfg, pcm, corrupt=None):
     if corrupt is not None:
         pkts = list(pkts)
         pkts[corrupt] = pkts[corrupt][: max(2, len(pkts[corrupt]) // 3)]
-    dec = JaxBatchDecoder(cfg)
+    dec = JaxBatchDecoder(cfg, impl="interpret")
     got = dec.decode_packets(pkts)
     want = [oracle(cfg, p)[0] for p in pkts]
     assert got == want
@@ -83,7 +79,7 @@ def _roundtrip_spec(cfg, pcm, spec):
     from saprobe_alac_tpu.ops.batch import JaxBatchDecoder
 
     pkts = encode_packets(cfg, spec, pcm)
-    got = JaxBatchDecoder(cfg).decode_packets(pkts)
+    got = JaxBatchDecoder(cfg, impl="interpret").decode_packets(pkts)
     want = [oracle(cfg, p)[0] for p in pkts]
     assert got == want
 
@@ -94,10 +90,9 @@ def _roundtrip_spec(cfg, pcm, spec):
     ids=["sce16", "cpe16", "cpe24", "cpe32", "sce20", "5.1", "sce24", "sce32"],
 )
 def test_dense_forced_escape(dense_interpret, depth, channels):
-    """In-kernel raw escape walk (decoder.go:326-345/507-535): forced
-    escape elements across depths/layouts, incl. the CPE 32-bit case
-    (stride 2*cb = 64 bits/row, the raw window-budget worst case) and the
-    interleaved U/V pass-2 rewind."""
+    """Forced escape elements across depths/layouts (decoder.go:326-345,
+    507-535): the kernel skips them and the XLA gather extracts the raw
+    samples, incl. the CPE 32-bit case (64 bits per sample pair)."""
     F = 64 if channels > 2 else 128
     cfg = make_config(depth=depth, channels=channels, frame_length=F)
     _roundtrip_spec(
@@ -113,9 +108,9 @@ def test_dense_forced_escape(dense_interpret, depth, channels):
     ids=["cpe24bs1", "cpe32bs2", "sce24bs1", "sce32bs1"],
 )
 def test_dense_shift_raw_reader(dense_interpret, depth, channels, bsf):
-    """Shift-buffer extraction through the Pallas raw reader (unsigned
-    fixed-stride reads; decoder.go:314-321, 492-502) instead of the XLA
-    vread gather — incl. a partial final frame."""
+    """Shifted elements (decoder.go:314-321, 492-502): the kernel's cursor
+    starts past the shift region and the XLA gather reads it back —
+    incl. a partial final frame."""
     cfg = make_config(depth=depth, channels=channels, frame_length=128)
     _roundtrip_spec(
         cfg,
@@ -125,10 +120,8 @@ def test_dense_shift_raw_reader(dense_interpret, depth, channels, bsf):
 
 
 def test_dense_escape_long_frame_rewind(dense_interpret):
-    """F=1024 CPE escape: the raw region (1024*2*17 = 34816 bits) spans
-    multiple 8192-bit superblocks, so the pass-2 rewind to esc_base + cb
-    lands BELOW the resident superblock pair — exercising the backward
-    need_l1 arm (an F=128 region fits inside one pair and never does)."""
+    """F=1024 CPE escape: a long raw region, then the END tag read past
+    it by the slot loop."""
     cfg = make_config(frame_length=1024)
     _roundtrip_spec(
         cfg, music_pcm(1024 * 2, 2, 16, seed=59), EncoderSpec(escape=True)
@@ -143,8 +136,8 @@ def test_dense_escape_partial_frame(dense_interpret):
 
 
 def test_dense_mixed_escape_compressed_batch(dense_interpret):
-    """Escape and compressed lanes coexisting in one slot: raw lanes ride
-    the same group loop rows as the Golomb lanes."""
+    """Escape and compressed lanes coexisting in one slot: escape lanes sit
+    idle in the kernel while the Golomb lanes of the same block walk."""
     from saprobe_alac_tpu.ops.batch import JaxBatchDecoder
 
     cfg = make_config(frame_length=128)
@@ -152,7 +145,7 @@ def test_dense_mixed_escape_compressed_batch(dense_interpret):
     pk_esc = encode_packets(cfg, EncoderSpec(escape=True), pcm)
     pk_cmp = encode_packets(cfg, EncoderSpec(), pcm)
     pkts = [p for pair in zip(pk_esc, pk_cmp) for p in pair]
-    got = JaxBatchDecoder(cfg).decode_packets(pkts)
+    got = JaxBatchDecoder(cfg, impl="interpret").decode_packets(pkts)
     want = [oracle(cfg, p)[0] for p in pkts]
     assert got == want
 
@@ -166,13 +159,12 @@ def test_dense_corrupt_packet_errors(dense_interpret):
 
 
 def test_impl_flip_retraces_same_shape():
-    """Regression (advisor round 2): flipping walk._IMPL must retrace even for
-    a batch shape already compiled under another impl — the selection is a
-    static jit argument, so the differential gate cannot pass vacuously off a
-    cached executable that never routed through the kernel."""
+    """The impl is a static jit argument: decoding a batch shape already
+    compiled for the XLA path must retrace for the kernel path, so a
+    differential check cannot pass off a cached executable that never
+    routed through the kernel."""
     import jax
 
-    import saprobe_alac_tpu.ops.walk as walk
     import saprobe_alac_tpu.ops.walk_kernel as wk
     from saprobe_alac_tpu.ops.batch import JaxBatchDecoder
 
@@ -181,22 +173,18 @@ def test_impl_flip_retraces_same_shape():
     pkts = encode_packets(cfg, EncoderSpec(), pcm)
 
     jax.clear_caches()
-    old = walk._IMPL
     fired = []
-    orig = wk.dense_element_pallas
+    orig = wk.entropy_channel_pallas
 
     def spy(*a, **k):
         fired.append(1)
         return orig(*a, **k)
 
     try:
-        walk._IMPL = "xla"
-        want = JaxBatchDecoder(cfg).decode_packets(pkts)  # caches the shape
-        wk.dense_element_pallas = spy
-        walk._IMPL = "pallas_interpret"
-        got = JaxBatchDecoder(cfg).decode_packets(pkts)  # same shape: must retrace
+        want = JaxBatchDecoder(cfg, impl="xla").decode_packets(pkts)  # caches the shape
+        wk.entropy_channel_pallas = spy
+        got = JaxBatchDecoder(cfg, impl="interpret").decode_packets(pkts)
     finally:
-        walk._IMPL = old
-        wk.dense_element_pallas = orig
-    assert fired, "kernel was not invoked after flipping _IMPL (stale jit cache)"
+        wk.entropy_channel_pallas = orig
+    assert fired, "kernel was not invoked for the kernel impl (stale jit cache)"
     assert got == want
